@@ -1,0 +1,53 @@
+"""Map the JAX package's parameter tree onto the port's modules.
+
+The JAX tree of a dense ``DecoderLM`` (``transformer.stack_decl``) is::
+
+    {"embed": {"embedding", "lm_head"},
+     "stack": {"units": {"ln1": {"scale"}, "ln2": {"scale"},
+                         "attn": {"wq": {"w"[, "b"]}, "wk", "wv", "wo": {"w"}},
+                         "mlp": {"w_up", "w_gate", "w_down": {"w"}}}},
+     "final_norm": {"scale"}}
+
+with a leading ``layers`` axis on every ``units`` leaf.  The port keeps
+the ``[in, out...]`` dense layout, so the mapping only slices the layers
+axis.  Leaves may be numpy arrays (bfloat16 arrays from ml_dtypes
+included) or anything ``np.asarray`` accepts.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(x) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """JAX param tree -> a state dict for :class:`DecoderLM`
+    (``model.load_state_dict(params_from_jax(tree))``)."""
+    if "tail" in tree["stack"]:
+        raise NotImplementedError("stacks with a tail unit are not dense")
+    sd = {"embedding": _tensor(tree["embed"]["embedding"]),
+          "final_norm.scale": _tensor(tree["final_norm"]["scale"])}
+    if "lm_head" in tree["embed"]:
+        sd["lm_head"] = _tensor(tree["embed"]["lm_head"])
+    units = tree["stack"]["units"]
+    leaves = {"ln1.scale": units["ln1"]["scale"],
+              "ln2.scale": units["ln2"]["scale"]}
+    for n in "qkvo":
+        proj = units["attn"][f"w{n}"]
+        leaves[f"attn.w{n}"] = proj["w"]
+        if "b" in proj:
+            leaves[f"attn.b{n}"] = proj["b"]
+    for name, proj in units["mlp"].items():
+        leaves[f"mlp.{name}"] = proj["w"]
+    stacked = {k: _tensor(v) for k, v in leaves.items()}
+    num_layers = stacked["ln1.scale"].shape[0]
+    for i in range(num_layers):
+        for k, v in stacked.items():
+            sd[f"layers.{i}.{k}"] = v[i].clone()
+    return sd

@@ -1,0 +1,125 @@
+"""Parameter declarations and seeded initialisation for the dense decoder.
+
+The JAX package declares every parameter once as a ``ParamDecl`` (shape +
+initializer) and initialises the whole layers-stacked tree from one PRNG
+key.  The port keeps the declaration tree with the SAME shapes — the
+``layers`` axis stacked in front, exactly as ``transformer.stack_decl``
+builds it — so the init scales match ``_init_leaf``: a "normal" leaf's
+stddev is ``1/sqrt(prod(shape[:-1]))`` of the stacked shape.
+
+The tensors themselves are drawn per layer, straight into the model dtype
+on the target device from an explicit ``torch.Generator`` — a full-width
+model is never materialised as a float32 host copy.  The bits differ from
+JAX's threefry stream; parity tests load the JAX weights through
+:mod:`repro_torch.models.convert` instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDecl:
+    """Declaration of one parameter: its (stacked) shape and initializer."""
+
+    shape: tuple[int, ...]
+    init: str = "normal"  # normal | zeros | ones | embed
+    scale: float | None = None  # stddev override for "normal"
+    dtype: torch.dtype | None = None  # None -> model default dtype
+
+
+def padded_vocab(vocab_size: int, multiple: int = 128) -> int:
+    """Vocab padded for divisibility + alignment (pad ids never win: their
+    logits are masked to a large negative)."""
+    return (vocab_size + multiple - 1) // multiple * multiple
+
+
+def _dense(in_dim, out_dims, *, bias=False):
+    d = {"w": ParamDecl((in_dim, *out_dims))}
+    if bias:
+        d["b"] = ParamDecl(tuple(out_dims), "zeros", dtype=torch.float32)
+    return d
+
+
+def _stack(tree, n: int):
+    if isinstance(tree, ParamDecl):
+        return dataclasses.replace(tree, shape=(n,) + tree.shape)
+    return {k: _stack(v, n) for k, v in tree.items()}
+
+
+def check_family(cfg) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"repro_torch ports the dense decoder only (the unified paged "
+            f"serve slice); {cfg.name!r} is family {cfg.family!r}")
+
+
+def decl_tree(cfg) -> dict:
+    """The JAX ``DecoderLM.decl()`` tree for a dense config, layers-stacked:
+    ``{"embed", "stack": {"units": ...}, "final_norm"}``."""
+    check_family(cfg)
+    d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
+    v = padded_vocab(cfg.vocab_size)
+    norm = {"scale": ParamDecl((d,), "ones", dtype=torch.float32)}
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
+    mlp = {"w_up": _dense(d, (ff,))}
+    if cfg.gated_mlp:
+        mlp["w_gate"] = _dense(d, (ff,))
+    mlp["w_down"] = _dense(ff, (d,))
+    layer = {
+        "ln1": dict(norm), "ln2": dict(norm),
+        "attn": {
+            "wq": _dense(d, (cfg.num_heads, hd), bias=cfg.qkv_bias),
+            "wk": _dense(d, (cfg.num_kv_heads, hd), bias=cfg.qkv_bias),
+            "wv": _dense(d, (cfg.num_kv_heads, hd), bias=cfg.qkv_bias),
+            "wo": {"w": ParamDecl((cfg.num_heads, hd, d))},
+        },
+        "mlp": mlp,
+    }
+    embed = {"embedding": ParamDecl((v, d), "embed")}
+    if not cfg.tie_embeddings:
+        embed["lm_head"] = ParamDecl((d, v))
+    return {"embed": embed, "stack": {"units": _stack(layer, cfg.num_layers)},
+            "final_norm": dict(norm)}
+
+
+def _leaves(tree):
+    if isinstance(tree, ParamDecl):
+        yield tree
+    else:
+        for v in tree.values():
+            yield from _leaves(v)
+
+
+def param_count(cfg) -> int:
+    return sum(math.prod(d.shape) for d in _leaves(decl_tree(cfg)))
+
+
+def init_leaf(d: ParamDecl, shape, default_dtype, generator, device):
+    """One tensor of ``shape`` (a per-layer slice of ``d.shape`` or the
+    whole of it) drawn like JAX ``_init_leaf`` draws ``d``."""
+    dtype = d.dtype or default_dtype
+    if d.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if d.init == "normal":
+        fan_in = math.prod(d.shape[:-1]) if len(d.shape) > 1 else d.shape[0]
+        std = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    elif d.init == "embed":
+        std = d.scale if d.scale is not None else 1.0
+    else:
+        raise NotImplementedError(f"init {d.init!r} is not ported")
+    out = torch.empty(shape, dtype=dtype, device=device)
+    return out.normal_(0.0, std, generator=generator)
