@@ -7,30 +7,42 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, torch version, compute
    capability (must be 9.x, Hopper);
-2. build the CUDA paged-attention kernels from ``csrc/`` with nvcc;
+2. build the CUDA kernels from ``csrc/`` (paged attention, flash
+   attention), one nvcc per source, started together;
 3. each kernel against its plain torch version on the card at the main
-   path's shapes (G = 4, D = 128, block 16, 8 kv heads) in bf16 and f32,
-   sliding-window and NULL-tail cases and a ``row_len == 0`` span row
-   included; then its time (CUDA events, L2 flushed before each launch)
-   beside the plain version's, ``F.scaled_dot_product_attention`` on the
-   gathered view (a yardstick only — the port never calls it) and the
-   least time the card could take (bytes over 3.35 TB/s vs flops over the
-   dtype's peak);
+   paths' shapes (granite-8b: 32 q / 8 kv heads, D = 128; block 16 for
+   the paged kernels) in bf16 and f32 — sliding-window, NULL-tail and
+   ``row_len == 0`` cases for the paged kernels; causal, a prefix-hit
+   tail at ``q_offset`` 256, a sliding window and ragged lengths (causal
+   and bidirectional) for the flash kernel; then its time (CUDA events,
+   L2 flushed before each launch) beside the plain version's, one
+   PyTorch library call computing the same function
+   (``F.scaled_dot_product_attention`` — a yardstick only, the port never
+   calls it) and the least time the card could take (bytes over
+   3.35 TB/s vs flops over the dtype's peak);
 4. full-width granite-8b (36 layers, d_model 4096, bf16, random weights
-   from a seed) through ``UnifiedServeEngine(device="cuda")``: 8 requests
-   of 200-512 prompt tokens in pairs sharing a block-aligned prefix, 32
-   new tokens each, 4 slots, prefix cache on.  Every kernel launch count
-   is zeroed just before and read just after; both kernels must have
-   launched and the plain path must not have run.  Each request's first
-   token must be the argmax of the model's plain ``forward()`` on its
-   prompt up to bf16 noise, with finite logits.  Then one more wave under
-   ``torch.profiler`` gives the device-busy share and the device time by
-   kernel family;
+   from a seed), one model object for both waves:
+   a. through ``UnifiedServeEngine(device="cuda")``: 8 requests of
+      200-512 prompt tokens in pairs sharing a block-aligned prefix, 32
+      new tokens each, 4 slots, prefix cache on.  Every kernel launch
+      count is zeroed just before and read just after; both paged kernels
+      must have launched and no plain path may have run.  Each request's
+      first token must be the argmax of the model's ``forward()`` on its
+      prompt up to bf16 noise, with finite logits.  One more wave under
+      ``torch.profiler`` gives the device-busy share and the device time
+      by kernel family;
+   b. the same stream through the grouped-prefill
+      ``ContinuousServeEngine`` with the tracer on (segments flushed
+      mid-run, merged into one ``.prv`` in a temporary directory and
+      parsed back): the flash and paged-decode kernels must have launched
+      and no plain path may have run; first tokens as in (a); tok/s, the
+      device idle share (a profiled wave) and TTFT/TPOT p50/p95 from the
+      merged trace;
 5. reduced granite (float32, 2 layers, full attention and a sliding
-   window) through the engine with ``kernel_mode="pallas"`` (the CUDA
-   kernels) and ``"xla"`` (the plain path): the greedy streams must be
-   identical, and equal to a greedy full-recompute oracle from the
-   model's own ``forward``;
+   window) through ``ContinuousServeEngine``, ``UnifiedServeEngine`` and
+   ``ServeEngine`` with ``kernel_mode="pallas"`` (the CUDA kernels) and
+   ``"xla"`` (the plain path): all six greedy streams must be identical,
+   and equal to a greedy full-recompute oracle from ``forward()``;
 6. a ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -43,6 +55,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -54,9 +67,13 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |kernel - plain| (see PERF.md)
 # full width, bf16: logit gap of the engine's first token below forward()'s
 # argmax (logits ~N(0, 1); bf16 keeps ~3 digits, two attention paths)
 FIRST_TOKEN_TOL = 0.1
-SOURCE = "src/repro_torch/kernels/attention/csrc/paged_attention.cu"
+CSRC = "src/repro_torch/kernels/attention/csrc/"
+SOURCES = {"paged_decode": CSRC + "paged_attention.cu",
+           "paged_span": CSRC + "paged_attention.cu",
+           "flash_attention": CSRC + "flash_attention.cu"}
 REPLACES = {"paged_decode": "src/repro/kernels/attention/paged.py:102",
-            "paged_span": "src/repro/kernels/attention/paged.py:225"}
+            "paged_span": "src/repro/kernels/attention/paged.py:225",
+            "flash_attention": "src/repro/kernels/attention/flash.py:100"}
 
 
 def require(cond, msg):
@@ -247,14 +264,137 @@ def kernel_phase(torch, np):
     return results
 
 
+def flash_bound_ms(dtype_name, q, k, *, causal, window, q_offset):
+    """Least time for a dense attention call: q, k, v read and out written
+    once, against 4*D flops per (q head, query, attended key)."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    item = q.element_size()
+    pairs = 0
+    for pos in range(q_offset, q_offset + sq):
+        hi = min(skv, pos + 1) if causal else skv
+        lo = max(0, pos - window + 1) if window else 0
+        pairs += max(hi - lo, 0)
+    io_bytes = (2 * q.numel() + 2 * k.numel()) * item
+    flops = b * hq * pairs * 4 * d
+    t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_sdpa_yardstick(torch, q, k, v, *, q_offset):
+    """``F.scaled_dot_product_attention`` on head-major copies (made outside
+    the timing) with the causal mask at ``q_offset``."""
+    import torch.nn.functional as F
+
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(g, 2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    if q_offset == 0 and q.shape[1] == k.shape[1]:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    qpos = q_offset + torch.arange(q.shape[1], device=q.device)
+    mask = torch.arange(k.shape[1], device=q.device)[None] <= qpos[:, None]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
+def flash_phase(torch, np):
+    """The flash kernel against its plain version (bf16 and f32) at
+    granite-8b's head shapes, then its time at the main-path prefill
+    shapes: one 512-token prompt, and a 256-token tail at offset 256."""
+    from repro_torch.kernels.attention import flash
+
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    hq, hkv, d = 32, 8, 128
+    cases = [  # name, sq, skv, causal, window, q_offset
+        ("causal", 512, 512, True, None, 0),
+        ("prefix-hit tail", 256, 512, True, None, 256),
+        ("window", 512, 512, True, 100, 0),
+        ("ragged causal", 333, 333, True, None, 0),
+        ("ragged tail", 77, 333, True, None, 256),
+        ("ragged bidirectional", 200, 333, False, None, 0),
+    ]
+    results = {}
+    for dt_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dt_name)
+        for name, sq, skv, causal, window, qoff in cases:
+            mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+            q, k, v = mk(1, sq, hq, d), mk(1, skv, hkv, d), mk(1, skv, hkv, d)
+            kw = dict(causal=causal, window=window, q_offset=qoff)
+            out = flash.flash_attention_fwd(q, k, v, **kw)
+            ref = flash.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            require(torch.isfinite(out).all().item(), f"flash {name} non-finite")
+            print(f"[smoke] flash_attention {dt_name} {name} (Sq {sq}, Skv "
+                  f"{skv}, offset {qoff}): max|kernel-plain| {err:.3e} "
+                  f"(tol {TOL[dt_name]})")
+            require(err <= TOL[dt_name], f"flash {dt_name} {name} err {err}")
+            if dt_name != "bfloat16" or name not in ("causal", "prefix-hit tail"):
+                continue
+            r = dict(max_abs_err=err,
+                     ms=time_ms(torch, lambda: flash.flash_attention_fwd(
+                         q, k, v, **kw), flush),
+                     plain_ms=time_ms(torch, lambda: flash.flash_attention_plain(
+                         q, k, v, **kw), flush),
+                     library_ms=time_ms(torch, flash_sdpa_yardstick(
+                         torch, q, k, v, q_offset=qoff), flush))
+            r["bound_ms"], r["bound_by"] = flash_bound_ms(
+                dt_name, q, k, causal=causal, window=window, q_offset=qoff)
+            print(f"[smoke] flash_attention bf16 {name} (Sq {sq} at offset "
+                  f"{qoff}): kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+            results.setdefault("flash_attention", r)  # the 512-token prompt
+    del flush_buf
+    return results
+
+
 # ----------------------------------------------------------------------
-# phases 4-5: the serve engine
+# phases 4-5: the serve engines
 # ----------------------------------------------------------------------
+def shared_prefix_stream(rng, np, vocab, bs):
+    """8 prompts of 200-512 tokens: four heads, then four prompts each
+    sharing a block-aligned prefix with one head."""
+    lens = [int(x) for x in rng.integers(200, 513, 8)]
+    heads = [rng.integers(0, vocab, (n,)).astype(np.int32) for n in lens[:4]]
+    prompts = list(heads)
+    for i, n in enumerate(lens[4:]):
+        shared = min(len(heads[i]), n) // 2 // bs * bs  # block-aligned prefix
+        tail = rng.integers(0, vocab, (n - shared,)).astype(np.int32)
+        prompts.append(np.concatenate([heads[i][:shared], tail]))
+    return lens, prompts
+
+
+def check_first_tokens(torch, model, cfg, prompts, firsts, what):
+    """Each request's first token must be the argmax of the plain
+    full-sequence ``forward()`` on its prompt up to bf16 noise."""
+    worst = 0.0
+    with torch.inference_mode():
+        for p, first in zip(prompts, firsts):
+            logits = model(torch.tensor(p, device="cuda")[None])[0, -1, :cfg.vocab_size]
+            require(torch.isfinite(logits).all().item(), "non-finite logits")
+            worst = max(worst, (logits.max() - logits[int(first)]).item())
+    print(f"[smoke] {what} vs forward(): logits finite; first tokens within "
+          f"{worst:.4f} of the forward argmax logit (tol {FIRST_TOKEN_TOL})")
+    require(worst <= FIRST_TOKEN_TOL, f"{what}: first token {worst} below the argmax")
+
+
+def served(out, reqs, gen, vocab):
+    for r in reqs:
+        toks = out.get(r.rid)
+        require(toks is not None and len(toks) == gen,
+                f"request {r.rid} returned {None if toks is None else len(toks)}")
+        require(((toks >= 0) & (toks < vocab)).all(), "token out of vocab")
+
+
 def full_width_phase(torch, np):
+    """Phase 4: one full-width granite-8b, served by the unified engine
+    (a) and by the grouped-prefill engine with the tracer on (b)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.attention import ops, paged
     from repro_torch.models.model import build_model
-    from repro_torch.serve.step import UnifiedServeEngine
 
     cfg = get_config("granite-8b")
     t0 = time.perf_counter()
@@ -264,21 +404,25 @@ def full_width_phase(torch, np):
           f"params {cfg.dtype}, {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, init {time.perf_counter() - t0:.1f}s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    launches = unified_wave(torch, np, cfg, model)
+    launches.update(legacy_wave(torch, np, cfg, model))
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def unified_wave(torch, np, cfg, model):
+    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.serve.step import UnifiedServeEngine
+
     gen, bs = 32, 16
     eng = UnifiedServeEngine(cfg, model, device="cuda", num_slots=4,
                              max_len=512 + gen, block_size=bs)
     warm = eng.submit(np.arange(40, dtype=np.int32), 2)  # cuBLAS/lib warm-up
     eng.run()
     require(len(warm.tokens) == 2, "warm-up request did not finish")
-    rng = np.random.default_rng(1)
-    lens = [int(x) for x in rng.integers(200, 513, 8)]
-    heads = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
-             for n in lens[:4]]
-    prompts = list(heads)
-    for i, n in enumerate(lens[4:]):
-        shared = min(len(heads[i]), n) // 2 // bs * bs  # block-aligned prefix
-        tail = rng.integers(0, cfg.vocab_size, (n - shared,)).astype(np.int32)
-        prompts.append(np.concatenate([heads[i][:shared], tail]))
+    lens, prompts = shared_prefix_stream(np.random.default_rng(1), np,
+                                         cfg.vocab_size, bs)
     stats0 = dict(eng.stats)
     ops.reset_counts()
     torch.cuda.synchronize()
@@ -289,48 +433,108 @@ def full_width_phase(torch, np):
     seconds = time.perf_counter() - t0
     launches = {"paged_decode": ops.paged_attention.launches,
                 "paged_span": ops.paged_span_attention.launches}
-    plain = paged.paged_decode_plain.calls + paged.paged_span_plain.calls
-    for r in reqs:
-        toks = out.get(r.rid)
-        require(toks is not None and len(toks) == gen,
-                f"request {r.rid} returned {None if toks is None else len(toks)}")
-        require(((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of vocab")
+    plain = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
+             + flash.flash_attention_plain.calls)
+    served(out, reqs, gen, cfg.vocab_size)
     st = eng.stats
     tokens = st["tokens_decoded"] - stats0["tokens_decoded"]
-    print(f"[smoke] served {len(reqs)} requests (prompts {lens}), {tokens} "
-          f"tokens in {seconds:.2f}s = {tokens / seconds:.1f} tok/s; peak "
-          f"{st['peak_blocks']} blocks, "
+    print(f"[smoke] unified: served {len(reqs)} requests (prompts {lens}), "
+          f"{tokens} tokens in {seconds:.2f}s = {tokens / seconds:.1f} tok/s; "
+          f"peak {st['peak_blocks']} blocks, "
           f"{st['prefix_hit_tokens'] - stats0['prefix_hit_tokens']} "
           f"prefix-hit tokens, {st['preemptions'] - stats0['preemptions']} "
           f"preemptions")
-    print(f"[smoke] main-path kernel launches: {launches}; plain-path calls "
-          f"{plain}; engine dispatch counts {st['kernel_dispatch']}")
+    print(f"[smoke] unified main-path kernel launches: {launches}; plain-path "
+          f"calls {plain}; engine dispatch counts {st['kernel_dispatch']}")
     require(all(n > 0 for n in launches.values()), f"kernel idle: {launches}")
     require(plain == 0, f"plain path ran {plain} times on the main path")
     require(st["prefix_hit_tokens"] > stats0["prefix_hit_tokens"],
             "no prefix hits on the shared-prefix pairs")
-    # reference: the plain full-sequence forward() on each prompt; the
-    # engine's first token (chunked span path + CUDA kernels, bf16) must be
-    # that forward's argmax up to bf16 noise in the logits
-    worst = 0.0
-    with torch.inference_mode():
-        for p, r in zip(prompts, reqs):
-            logits = model(torch.tensor(p, device="cuda")[None])[0, -1, :cfg.vocab_size]
-            require(torch.isfinite(logits).all().item(), "non-finite logits")
-            worst = max(worst, (logits.max() - logits[int(out[r.rid][0])]).item())
-    print(f"[smoke] full width vs forward(): logits finite; first tokens "
-          f"within {worst:.4f} of the forward argmax logit (tol {FIRST_TOKEN_TOL})")
-    require(worst <= FIRST_TOKEN_TOL, f"first token {worst} below the argmax")
-    profile_window(torch, eng, [p[:256] for p in prompts[:4]], gen)
-    del eng, model
+    check_first_tokens(torch, model, cfg, prompts,
+                       [out[r.rid][0] for r in reqs], "unified, full width")
+    profile_window(torch, eng, [p[:256] for p in prompts[:4]], gen, "unified")
+    del eng
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_window(torch, eng, prompts, gen):
-    """Where the time goes: one more wave (4 requests) under
-    ``torch.profiler``; device-busy share of the wall time and the device
-    time by kernel family.  Runs after the main path's counts are read."""
+def legacy_wave(torch, np, cfg, model):
+    """The grouped-prefill engine on the same stream, traced: segments
+    flushed mid-run, merged into one ``.prv`` and parsed back."""
+    from repro_torch import core as xtrace
+    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.serve.engine import ContinuousServeEngine
+
+    gen, bs = 32, 16
+    lens, prompts = shared_prefix_stream(np.random.default_rng(1), np,
+                                         cfg.vocab_size, bs)
+    # untraced wave under the profiler first (also the warm-up)
+    eng = ContinuousServeEngine(cfg, model, device="cuda", num_slots=4,
+                                max_len=512 + gen, block_size=bs)
+    idle = profile_window(torch, eng, [p[:256] for p in prompts[:4]], gen,
+                          "legacy")
+    del eng
+    with tempfile.TemporaryDirectory() as tmp:
+        base = pathlib.Path(tmp) / "serve"
+        tracer = xtrace.Tracer("chip-smoke-legacy").init()
+        eng = ContinuousServeEngine(cfg, model, device="cuda", num_slots=4,
+                                    max_len=512 + gen, block_size=bs,
+                                    tracer=tracer, flush_every=16,
+                                    flush_base=base)
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, gen) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"flash_attention": ops.flash_attention.launches,
+                    "paged_decode": ops.paged_attention.launches,
+                    "paged_span": ops.paged_span_attention.launches}
+        plain = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
+                 + flash.flash_attention_plain.calls)
+        segments = list(tracer.segments)
+        paths = xtrace.write_prv(tracer.finish(), base, segments=segments)
+        trace = xtrace.parse_prv(paths["prv"])
+        lat = xtrace.serve_latency_summary(trace)
+        prv_bytes = paths["prv"].stat().st_size
+    served(out, reqs, gen, cfg.vocab_size)
+    st = eng.stats
+    tokens = st["tokens_decoded"]
+    print(f"[smoke] legacy: served {len(reqs)} requests, {tokens} tokens in "
+          f"{seconds:.2f}s = {tokens / seconds:.1f} tok/s; {st['prefills']} "
+          f"prefills ({st['prefill_tokens']} tokens, "
+          f"{st['prefill_seconds']:.2f}s), {st['prefix_hit_tokens']} "
+          f"prefix-hit tokens, {st['preemptions']} preemptions, "
+          f"{st['decode_dispatches']} decode bursts, {st['host_syncs']} host "
+          f"syncs")
+    print(f"[smoke] legacy main-path kernel launches: {launches}; plain-path "
+          f"calls {plain}; engine dispatch counts {st['kernel_dispatch']}")
+    require(launches["flash_attention"] > 0 and launches["paged_decode"] > 0,
+            f"kernel idle on the legacy path: {launches}")
+    require(plain == 0, f"plain path ran {plain} times on the legacy path")
+    require(st["prefix_hit_tokens"] > 0, "no prefix hits on the legacy path")
+    t, o = lat["ttft_us"], lat["tpot_us"]
+    print(f"[smoke] legacy trace: {len(segments)} flushed segments merged into "
+          f"one .prv ({prv_bytes} bytes; {trace.summary()}); TTFT p50 "
+          f"{t['p50']:.0f}us / p95 {t['p95']:.0f}us; TPOT p50 {o['p50']:.0f}us "
+          f"/ p95 {o['p95']:.0f}us over {t['count']} requests; device idle "
+          f"{idle if idle is None else f'{idle:.1%}'} (profiled wave)")
+    require(len(segments) > 0, "no trace segment was flushed")
+    require(t["count"] == len(reqs) and o["count"] == len(reqs),
+            f"trace holds {t['count']}/{o['count']} latencies, not {len(reqs)}")
+    check_first_tokens(torch, model, cfg, prompts,
+                       [out[r.rid][0] for r in reqs], "legacy, full width")
+    del eng
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches["flash_attention"]}
+
+
+def profile_window(torch, eng, prompts, gen, label):
+    """Where the time goes: one wave (4 requests) under ``torch.profiler``;
+    device-busy share of the wall time and the device time by kernel
+    family.  Runs outside the counted main-path waves.  Returns the idle
+    share (None when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -344,36 +548,44 @@ def profile_window(torch, eng, prompts, gen):
     kern = [e for e in prof.key_averages() if e.device_type == cuda]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if not kern or busy_ms <= 0:
-        print("[smoke] profile: no device time recorded (not measured)")
-        return
-    fams = {"paged_decode": 0.0, "paged_span": 0.0, "gemm": 0.0, "other": 0.0}
+        print(f"[smoke] {label} profile: no device time recorded (not measured)")
+        return None
+    fams = dict.fromkeys(("flash", "paged_decode", "paged_span", "gemm",
+                          "other"), 0.0)
     for e in kern:
         n = e.key.lower()
-        fam = ("paged_decode" if "paged_decode" in n else "paged_span"
-               if "paged_span" in n else "gemm"
-               if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet"))
-               else "other")
+        fam = next((f for f in ("flash", "paged_decode", "paged_span")
+                    if f in n), None) or (
+            "gemm" if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet"))
+            else "other")
         fams[fam] += e.self_device_time_total / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"[smoke] profile ({len(prompts)} requests x {gen} tokens): wall "
-          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
-    print("[smoke] profile device time by family: " + ", ".join(
+    idle = 1 - busy_ms / wall_ms
+    print(f"[smoke] {label} profile ({len(prompts)} requests x {gen} tokens): "
+          f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({busy_ms / wall_ms:.1%}), idle {idle:.1%}")
+    print(f"[smoke] {label} profile device time by family: " + ", ".join(
         f"{k} {v:.1f} ms ({v / busy_ms:.1%})" for k, v in fams.items()))
     for e in top:
-        print(f"[smoke] profile top: {e.self_device_time_total / 1e3:8.2f} ms "
-              f"x{e.count:<6} {e.key[:90]}")
+        print(f"[smoke] {label} profile top: {e.self_device_time_total / 1e3:8.2f}"
+              f" ms x{e.count:<6} {e.key[:90]}")
+    return idle
 
 
 def reduced_phase(torch, np):
+    """Reduced granite in f32: the legacy, unified and fixed-batch engines
+    under kernel modes pallas and xla give one greedy stream, equal to the
+    forward() full-recompute oracle."""
     from repro_torch.configs import get_config, reduced
-    from repro_torch.kernels.attention import ops, paged
+    from repro_torch.kernels.attention import flash, ops, paged
     from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine
     from repro_torch.serve.step import UnifiedServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(2)
+    gen = 12
     for window in (None, 12):
         base = reduced(get_config("granite-8b"), attention_window=window)
         prompts = [rng.integers(0, base.vocab_size, (n,)).astype(np.int32)
@@ -382,31 +594,46 @@ def reduced_phase(torch, np):
         for mode in ("pallas", "xla"):
             cfg = base.replace(kernel_mode=mode)
             model = build_model(cfg, device="cuda", seed=0)
-            eng = UnifiedServeEngine(cfg, model, device="cuda", num_slots=2,
-                                     max_len=48, block_size=16, chunk_size=8)
             ops.reset_counts()
-            reqs = [eng.submit(p, 12) for p in prompts]
-            out = eng.run()
-            streams[mode] = [out[r.rid] for r in reqs]
-            n_kernel = ops.paged_attention.launches + ops.paged_span_attention.launches
-            n_plain = paged.paged_decode_plain.calls + paged.paged_span_plain.calls
-            require((n_kernel > 0 and n_plain == 0) if mode == "pallas"
-                    else (n_kernel == 0 and n_plain > 0),
+            for name, make in (
+                    ("legacy", lambda: ContinuousServeEngine(
+                        cfg, model, device="cuda", num_slots=2, max_len=48,
+                        block_size=16)),
+                    ("unified", lambda: UnifiedServeEngine(
+                        cfg, model, device="cuda", num_slots=2, max_len=48,
+                        block_size=16, chunk_size=8))):
+                eng = make()
+                reqs = [eng.submit(p, gen) for p in prompts]
+                out = eng.run()
+                streams[name, mode] = [out[r.rid] for r in reqs]
+            static = ServeEngine(cfg, model, device="cuda", max_len=48)
+            streams["static", mode] = [static.generate(p[None], num_tokens=gen)[0]
+                                       for p in prompts]
+            n_kernel = (ops.paged_attention.launches
+                        + ops.paged_span_attention.launches
+                        + ops.flash_attention.launches)
+            n_plain = (paged.paged_decode_plain.calls
+                       + paged.paged_span_plain.calls
+                       + flash.flash_attention_plain.calls)
+            require((ops.flash_attention.launches > 0 and n_plain == 0)
+                    if mode == "pallas" else (n_kernel == 0 and n_plain > 0),
                     f"{mode}: {n_kernel} kernel launches, {n_plain} plain calls")
         with torch.inference_mode():
             oracle = []
             for p in prompts:  # greedy full recompute through forward()
                 ctx = torch.tensor(p, device="cuda")[None]
-                for _ in range(12):
+                for _ in range(gen):
                     nxt = model(ctx)[0, -1, :base.vocab_size].argmax()
                     ctx = torch.cat([ctx, nxt.view(1, 1).to(ctx.dtype)], 1)
                 oracle.append(ctx[0, len(p):].cpu().numpy())
-        for a, b, o in zip(streams["pallas"], streams["xla"], oracle):
-            require(np.array_equal(a, b), f"window={window}: pallas {a} != xla {b}")
-            require(np.array_equal(a, o), f"window={window}: engine {a} != oracle {o}")
+        for key, got in streams.items():
+            for a, o in zip(got, oracle):
+                require(np.array_equal(a, o),
+                        f"window={window} {key}: engine {a} != oracle {o}")
         print(f"[smoke] reduced granite f32 window={window}: greedy streams "
-              f"identical for kernel_mode pallas / xla and the forward() "
-              f"oracle ({len(prompts)} requests x 12 tokens)")
+              f"identical for the legacy, unified and fixed-batch engines "
+              f"under kernel_mode pallas / xla and the forward() oracle "
+              f"({len(prompts)} requests x {gen} tokens)")
 
 
 def main() -> int:
@@ -416,7 +643,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("[smoke] FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
-    from repro_torch.kernels.attention import paged
+    from repro_torch.kernels import build
+    from repro_torch.kernels.attention import flash, paged
 
     card = card_line()
     cap = torch.cuda.get_device_capability(0)
@@ -426,25 +654,26 @@ def main() -> int:
     require(cap[0] == 9, f"compute capability {cap} is not Hopper (9.x)")
 
     t0 = time.perf_counter()
-    built = paged.build_kernels()
-    print(f"[smoke] built {built.path.name} in {built.seconds:.1f}s "
-          f"(phase {time.perf_counter() - t0:.1f}s)")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[smoke] ptxas: {line.strip()}")
+    for built in build.load_all([paged.SOURCE, flash.SOURCE]):
+        print(f"[smoke] built {built.path.name} in {built.seconds:.1f}s")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[smoke] ptxas: {line.strip()}")
+    print(f"[smoke] build phase {time.perf_counter() - t0:.1f}s (parallel nvcc)")
 
     timings = kernel_phase(torch, np)
+    timings.update(flash_phase(torch, np))
     launches = full_width_phase(torch, np)
     reduced_phase(torch, np)
 
-    kernels = [dict(name=name, route="cuda", source=SOURCE,
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=timings[name]["max_abs_err"],
                     ms=timings[name]["ms"], plain_ms=timings[name]["plain_ms"],
                     bound_ms=timings[name]["bound_ms"],
                     bound_by=timings[name]["bound_by"],
                     library_ms=timings[name]["library_ms"])
-               for name in ("paged_decode", "paged_span")]
+               for name in ("paged_decode", "paged_span", "flash_attention")]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -47,22 +47,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kKeys = 8;     // keys scored together; block_size % kKeys == 0
 constexpr int kStages = 4;   // K/V blocks in flight per CTA
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using repro::from_f;
+using repro::to_f;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -301,26 +294,6 @@ cudaError_t launch_span(const void* q, const void* k, const void* v,
 }
 
 }  // namespace
-
-#define REPRO_DISPATCH(DTYPE, D, FN, ...)                                     \
-  do {                                                                        \
-    if (DTYPE == 0) {                                                         \
-      switch (D) {                                                            \
-        case 32: return (int)FN<float, 32>(__VA_ARGS__);                      \
-        case 64: return (int)FN<float, 64>(__VA_ARGS__);                      \
-        case 128: return (int)FN<float, 128>(__VA_ARGS__);                    \
-        case 256: return (int)FN<float, 256>(__VA_ARGS__);                    \
-      }                                                                       \
-    } else if (DTYPE == 1) {                                                  \
-      switch (D) {                                                            \
-        case 32: return (int)FN<__nv_bfloat16, 32>(__VA_ARGS__);              \
-        case 64: return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);              \
-        case 128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__);            \
-        case 256: return (int)FN<__nv_bfloat16, 256>(__VA_ARGS__);            \
-      }                                                                       \
-    }                                                                         \
-    return -1;                                                                \
-  } while (0)
 
 // dtype: 0 = float32, 1 = bfloat16.  window <= 0: no sliding window.
 // Strides are in elements.  Returns the launch's cudaError_t (0 = ok; -1

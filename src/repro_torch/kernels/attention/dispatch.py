@@ -1,9 +1,10 @@
-"""One dispatch point for the paged attention kernels.
+"""One dispatch point for the attention kernels.
 
-Every paged attention call site asks :func:`resolve` which backend runs:
-``cuda`` (the hand-written kernels in ``csrc/``) or ``torch`` (their plain
-versions).  Modes keep the JAX package's names (``cfg.kernel_mode``,
-overridable via ``REPRO_KERNEL_MODE``):
+Every attention call site (dense prefill, paged decode, ragged span)
+asks :func:`resolve` which backend runs: ``cuda`` (the hand-written
+kernels in ``csrc/``) or ``torch`` (their plain versions).  Modes keep
+the JAX package's names (``cfg.kernel_mode``, overridable via
+``REPRO_KERNEL_MODE``):
 
 * ``auto`` (default) — the CUDA kernels for CUDA tensors, the plain torch
   path for CPU tensors;
@@ -25,11 +26,10 @@ import os
 from repro_torch.kernels.attention.paged import HEAD_DIMS
 
 MODES = ("auto", "pallas", "xla")
-VARIANTS = ("paged_decode", "paged_span")
+VARIANTS = ("dense", "paged_decode", "paged_span")
 MODE_ENV = "REPRO_KERNEL_MODE"
 
-# trace-event values for EV_KERNEL_VARIANT (0 is reserved: "no dispatch");
-# the dense entries keep their ids for the flash kernel still to be ported
+# trace-event values for EV_KERNEL_VARIANT (0 is reserved: "no dispatch")
 KERNEL_VARIANT_IDS = {
     "dense:torch": 1,
     "dense:cuda": 2,
@@ -44,7 +44,7 @@ _SUPPORTED_DTYPES = ("float32", "bfloat16")
 
 @dataclasses.dataclass(frozen=True)
 class KernelDecision:
-    variant: str  # paged_decode | paged_span
+    variant: str  # dense | paged_decode | paged_span
     backend: str  # cuda | torch
     reason: str = ""
 

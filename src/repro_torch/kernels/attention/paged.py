@@ -47,21 +47,24 @@ def _gather(pages, block_tables):
     return g.reshape(b, w * pages.shape[1], *pages.shape[2:])
 
 
-def masked_attention(q, k, v, q_pos, kv_pos, *, window=None, kv_valid=None):
+def masked_attention(q, k, v, q_pos, kv_pos, *, window=None, kv_valid=None,
+                     causal=True):
     """Naive GQA attention, float32 softmax (the JAX ``_sdpa_naive``).
 
     q: [B, Sq, Hq, D]; k/v: [B, S, Hkv, D]; q_pos: [B, Sq] or [Sq];
-    kv_pos: [S]; kv_valid: optional bool [B, S].  Returns q-shaped output
-    in v's dtype."""
+    kv_pos: [B, S] or [S]; kv_valid: optional bool [B, S].  Returns
+    q-shaped output in v's dtype."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
     scores = scores * (1.0 / (d ** 0.5))
-    qp = q_pos if q_pos.dim() == 2 else q_pos[None]
-    mask = kv_pos[None, None, :] <= qp[:, :, None]  # [B|1, Sq, S]
+    qp = (q_pos if q_pos.dim() == 2 else q_pos[None])[:, :, None]
+    kp = (kv_pos if kv_pos.dim() == 2 else kv_pos[None])[:, None, :]
+    mask = kp <= qp if causal else torch.ones(
+        (1, 1, 1), dtype=torch.bool, device=q.device)  # [B|1, Sq|1, S|1]
     if window is not None:
-        mask = mask & (kv_pos[None, None, :] > qp[:, :, None] - window)
+        mask = mask & (kp > qp - window)
     if kv_valid is not None:
         mask = mask & kv_valid[:, None, :]
     scores = torch.where(mask[:, None, None], scores,

@@ -2,8 +2,10 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on first
 use into a shared library under ``_build/`` beside this module (listed in
-``.gitignore``), named by the hash of its source so an edited kernel is
-rebuilt and an unchanged one is loaded as is::
+``.gitignore``), named by the hash of its source and the ``*.cuh``
+headers beside it, so an edited kernel is rebuilt and an unchanged one is
+loaded as is.  :func:`load_all` starts one nvcc per source, all
+together::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas=-v -o _build/<name>-<hash>.so <source>
@@ -48,32 +50,58 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
-def compile_source(source: pathlib.Path) -> tuple[pathlib.Path, float, str]:
-    """Compile ``source`` unless a library built from the same bytes exists.
-    Returns (library path, build seconds, compiler log)."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"{source.stem}-{digest}.so"
-    if out.exists():
-        return out, 0.0, ""
+def _target(source: pathlib.Path) -> pathlib.Path:
+    """The library built from ``source`` and the headers beside it."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
+
+
+def compile_sources(sources) -> dict[pathlib.Path, tuple[float, str]]:
+    """Compile every source without an up-to-date library, one nvcc each,
+    all started together.  Returns {source: (build seconds, log)} for the
+    sources it built."""
+    todo = [s for s in sources if not _target(s).exists()]
+    if not todo:
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", str(tmp), str(source)]
+    nvcc = nvcc_path()
+    procs = []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out, seconds, log
+    for source in todo:
+        tmp = _target(source).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", str(tmp), str(source)]
+        procs.append((source, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    built, failed = {}, []
+    for source, tmp, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}) on {source}:\n{log}")
+            continue
+        os.replace(tmp, _target(source))  # atomic: loaders never see half a file
+        built[source] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
+
+
+def load_all(sources) -> list[Built]:
+    """Build (in parallel, where needed) and load CUDA sources; cached per
+    process."""
+    sources = [pathlib.Path(s) for s in sources]
+    fresh = compile_sources([s for s in sources if str(s) not in _loaded])
+    for s in sources:
+        if str(s) not in _loaded:
+            seconds, log = fresh.get(s, (0.0, ""))
+            path = _target(s)
+            _loaded[str(s)] = Built(ctypes.CDLL(str(path)), path, seconds, log)
+    return [_loaded[str(s)] for s in sources]
 
 
 def load(source: pathlib.Path) -> Built:
     """Build (if needed) and load one CUDA source; cached per process."""
-    key = str(source)
-    if key not in _loaded:
-        path, seconds, log = compile_source(source)
-        _loaded[key] = Built(ctypes.CDLL(str(path)), path, seconds, log)
-    return _loaded[key]
+    return load_all([source])[0]

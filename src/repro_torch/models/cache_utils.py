@@ -1,9 +1,15 @@
-"""Paged-pool cache writes, updated IN PLACE.
+"""Cache writes and slot-position helpers, updated IN PLACE.
 
-The JAX package updates the pool functionally (``.at[].set`` on donated
-buffers).  Here the pool tensors are mutated in place with
+The JAX package updates its caches functionally (``.at[].set`` on donated
+buffers).  Here the tensors are mutated in place: the paged pool with
 ``index_copy_`` on a flat ``[NB * bs, Kh, D]`` view of one layer's
-``[NB, bs, Kh, D]`` leaf — no copy of the pool is ever made.
+``[NB, bs, Kh, D]`` leaf, the contiguous ``[B, C, Kh, D]`` caches of the
+fixed-batch engine with an indexed store — no copy is ever made.
+
+Position convention of the contiguous caches (full and ring): slot ``s``
+of a capacity-``C`` cache holds absolute position ``p`` with
+``p % C == s``, taking the greatest such ``p`` at or below the decode
+index.
 
 NULL routing is the same contract as the JAX package: padding columns of
 a span, and positions past a row's table, land in the reserved NULL
@@ -14,6 +20,39 @@ from __future__ import annotations
 import torch
 
 NULL_BLOCK = 0
+
+
+def ring_slot(index, capacity: int, window: int | None):
+    """Cache slot for absolute position ``index`` (scalar or [B])."""
+    return index % capacity if window is not None else index
+
+
+def slot_positions(index, capacity: int, window: int | None):
+    """(kv_pos, kv_valid) for a capacity-``C`` slot cache at decode index.
+
+    index 0-d -> [C] vectors; index [B] -> [B, C] (every slot at its own
+    depth).  Ring caches store in slot ``s`` the greatest ``p <= index``
+    with ``p % C == s``; full caches store position ``s`` in slot ``s``."""
+    slots = torch.arange(capacity, dtype=torch.long, device=index.device)
+    idx = index.long()[..., None]  # [1] or [B, 1]
+    if window is not None:
+        kv_pos = idx - (idx - slots) % capacity
+        return kv_pos, kv_pos >= 0
+    return slots.expand(idx.shape[:-1] + (capacity,)), slots <= idx
+
+
+def slot_cache_write(kc, vc, k_new, v_new, index, window: int | None) -> None:
+    """Write one token per batch row into a contiguous [B, C, Kh, D] cache.
+
+    k_new/v_new: [B, 1, Kh, D]; index: 0-d (lockstep batch) or [B]."""
+    slot = ring_slot(index.long(), kc.shape[1], window)
+    if slot.dim() == 0:
+        kc[:, slot] = k_new[:, 0].to(kc.dtype)
+        vc[:, slot] = v_new[:, 0].to(vc.dtype)
+        return
+    rows = torch.arange(kc.shape[0], device=kc.device)
+    kc[rows, slot] = k_new[:, 0].to(kc.dtype)
+    vc[rows, slot] = v_new[:, 0].to(vc.dtype)
 
 
 def _flat(leaf: torch.Tensor) -> torch.Tensor:

@@ -97,16 +97,47 @@ class DecoderLM(nn.Module):
         self-attention over the whole sequence, no cache."""
         x = embed_tokens(self.embedding, tokens, self.dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = tf_mod.apply_stack(self.layers, x, self.cfg, positions=positions)
+        x, _ = tf_mod.apply_stack(self.layers, x, self.cfg, positions=positions)
         return self._logits(x)
 
-    def decode_step(self, pool, tokens, index, block_tables):
-        """One token per slot.  tokens/index: [B] (index = the token's
-        absolute position); block_tables: [B, W] int32.  Writes each token's
-        K/V into ``pool`` in place; returns logits [B, V_padded]."""
+    def prefill(self, tokens, max_len: int | None = None, ring: bool = True):
+        """tokens [B, S] -> (caches {"k", "v"} [L, B, C, Hkv, D], last
+        logits [B, V_padded]).  ``max_len`` sets the cache capacity C
+        (default S; a sliding window caps it, ring-arranged); ``ring=False``
+        keeps full-length K/V under a window (paged prefill: the pool
+        stores absolute positions and masks the window)."""
+        x = embed_tokens(self.embedding, tokens, self.dtype)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x, caches = tf_mod.apply_stack(self.layers, x, self.cfg,
+                                       positions=positions, mode="prefill",
+                                       cache_len=max_len, ring=ring)
+        return caches, self._logits(x[:, -1:])[:, 0]
+
+    def prefill_chunk(self, tokens, prefix, start: int):
+        """Tail prefill after a prefix-cache hit: only ``tokens`` [B, S]
+        (positions ``start .. start+S-1``) run through the stack; ``prefix``
+        holds the gathered K/V of positions [0, start), {"k", "v"}
+        [L, B, start, Hkv, D].  -> (tail caches [L, B, S, Hkv, D], last
+        logits [B, V_padded])."""
+        x = embed_tokens(self.embedding, tokens, self.dtype)
+        positions = torch.arange(start, start + tokens.shape[1],
+                                 device=tokens.device)
+        x, tail = tf_mod.apply_stack(self.layers, x, self.cfg,
+                                     positions=positions, caches=prefix,
+                                     mode="decode")
+        return tail, self._logits(x[:, -1:])[:, 0]
+
+    def decode_step(self, caches, tokens, index, block_tables=None):
+        """One token per row: tokens [B]; index = the token's absolute
+        position, [B] or (contiguous caches only) 0-d for a lockstep batch.
+        With ``block_tables`` [B, W] int32 ``caches`` is the paged pool,
+        else the contiguous caches {"k", "v"} [L, B, C, Hkv, D].  Writes
+        each token's K/V in place; returns logits [B, V_padded]."""
         x = embed_tokens(self.embedding, tokens[:, None], self.dtype)
-        x = tf_mod.apply_stack(self.layers, x, self.cfg, positions=index[:, None],
-                               pool=pool, index=index, block_tables=block_tables)
+        positions = index[:, None] if index.dim() else index.reshape(1)
+        x, _ = tf_mod.apply_stack(self.layers, x, self.cfg, positions=positions,
+                                  caches=caches, index=index,
+                                  block_tables=block_tables, mode="decode")
         return self._logits(x)[:, 0]
 
     def span_step(self, pool, tokens, row_start, row_len, block_tables):
@@ -117,9 +148,10 @@ class DecoderLM(nn.Module):
         x = embed_tokens(self.embedding, tokens, self.dtype)
         positions = row_start[:, None] + torch.arange(
             tokens.shape[1], dtype=row_start.dtype, device=tokens.device)[None]
-        x = tf_mod.apply_stack(self.layers, x, self.cfg, positions=positions,
-                               pool=pool, index=row_start,
-                               block_tables=block_tables, row_len=row_len)
+        x, _ = tf_mod.apply_stack(self.layers, x, self.cfg, positions=positions,
+                                  caches=pool, index=row_start,
+                                  block_tables=block_tables, row_len=row_len,
+                                  mode="decode")
         return self._logits(x)
 
     # ------------------------------------------------------------------

@@ -2,11 +2,14 @@
 MLP, residual adds — ``repro.models.transformer`` with the ``lax.scan``
 over stacked layers written as a Python loop over ``nn.Module`` layers.
 
-Two modes share one loop: forward (no cache, the full-recompute oracle)
-and paged decode/span (one pooled K/V leaf per layer, updated in place).
+One loop serves every mode: forward (no cache, the full-recompute
+oracle), prefill (returns each layer's fresh K/V), tail prefill after a
+prefix hit (returns the tail's K/V), contiguous decode and paged
+decode/span (caches updated in place).
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from repro_torch.models.attention import Attention, attention_block
@@ -42,25 +45,51 @@ class DenseLayer(nn.Module):
         self.mlp = MLP(mlp)
 
 
-def apply_layer(layer: DenseLayer, x, cfg, *, positions, pool=None, index=None,
-                block_tables=None, row_len=None):
+def apply_layer(layer: DenseLayer, x, cfg, *, positions, cache=None,
+                index=None, block_tables=None, row_len=None, build_cache=False,
+                cache_len=None, ring=True):
+    """-> (x, new_cache) — see :func:`attention_block` for the cache modes."""
     h = rmsnorm(layer.ln1.scale, x, cfg.norm_eps)
-    x = x + attention_block(layer.attn, h, cfg, positions=positions, pool=pool,
-                            index=index, block_tables=block_tables,
-                            row_len=row_len)
+    y, new_cache = attention_block(
+        layer.attn, h, cfg, positions=positions, cache=cache, index=index,
+        block_tables=block_tables, row_len=row_len, build_cache=build_cache,
+        cache_len=cache_len, ring=ring)
+    x = x + y
     h = rmsnorm(layer.ln2.scale, x, cfg.norm_eps)
-    return x + apply_mlp(layer.mlp, h, cfg.act)
+    return x + apply_mlp(layer.mlp, h, cfg.act), new_cache
 
 
-def apply_stack(layers, x, cfg, *, positions, pool=None, index=None,
-                block_tables=None, row_len=None):
-    """Run every layer.  With ``pool`` ({"k", "v"} stacked [L, NB, bs,
-    Hkv, D]) layer ``l`` reads and writes ``pool[leaf][l]``."""
+def apply_stack(layers, x, cfg, *, positions, caches=None, index=None,
+                block_tables=None, row_len=None, mode="forward",
+                cache_len=None, ring=True):
+    """Run every layer; returns (x, new_caches).
+
+    ``mode``: "forward" (no caches; new_caches None), "prefill" (new_caches
+    = each layer's fresh K/V stacked: {"k", "v"} [L, B, C, Hkv, D];
+    ``ring=False`` keeps full-length K/V under a sliding window, for the
+    paged pool) or "decode".  In decode mode ``caches`` holds stacked
+    leaves [L, ...] and layer ``l`` reads ``caches[leaf][l]``:
+
+    * paged pool [L, NB, bs, Hkv, D] with ``block_tables`` (and
+      ``row_len`` for spans), or contiguous caches [L, B, C, Hkv, D]
+      without: written in place, new_caches None;
+    * ``index is None``: tail prefill against a gathered prefix
+      [L, B, P, Hkv, D]; new_caches = the tail's K/V [L, B, S, Hkv, D].
+    """
+    if mode not in ("forward", "prefill", "decode"):
+        raise ValueError(f"apply_stack mode {mode!r}")
+    outs = []
     for i, layer in enumerate(layers):
-        lp = None if pool is None else {name: t[i] for name, t in pool.items()}
-        x = apply_layer(layer, x, cfg, positions=positions, pool=lp,
-                        index=index, block_tables=block_tables, row_len=row_len)
-    return x
+        lc = None if caches is None else {n: t[i] for n, t in caches.items()}
+        x, c = apply_layer(layer, x, cfg, positions=positions, cache=lc,
+                           index=index, block_tables=block_tables,
+                           row_len=row_len, build_cache=mode == "prefill",
+                           cache_len=cache_len, ring=ring)
+        if c is not None:
+            outs.append(c)
+    if not outs:
+        return x, None
+    return x, {n: torch.stack([c[n] for c in outs]) for n in outs[0]}
 
 
 def stack_paged_cache_spec(cfg, num_blocks: int, block_size: int, dtype):

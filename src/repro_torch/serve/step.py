@@ -268,15 +268,6 @@ class UnifiedServeEngine(ContinuousServeEngine):
     # ------------------------------------------------------------------
     # dispatch / fetch
     # ------------------------------------------------------------------
-    def _prep_dispatch(self):
-        """Refresh dirty device registers before a dispatch."""
-        if self._active_dirty:
-            self._active_dev = self._dev(self._active)
-            self._active_dirty = False
-        if self._tables_dirty:
-            self._tables_dev = self._dev(self._tables)
-            self._tables_dirty = False
-
     def _dispatch(self, pairs, steps, chunks: list[ChunkPlan]):
         tr = self.tracer
         if not pairs and not chunks:

@@ -1,5 +1,5 @@
-"""Torch port on the card: the CUDA paged kernels against their plain torch
-versions, and the engine's kernel-vs-plain greedy invariant.
+"""Torch port on the card: the CUDA paged and flash kernels against their
+plain torch versions, and the engines' kernel-vs-plain greedy invariant.
 
 Every test here needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
 mode) and skips elsewhere.  The file imports neither jax nor ``repro``,
@@ -15,8 +15,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.kernels.attention import ops, paged  # noqa: E402
+from repro_torch.kernels.attention import flash, ops, paged  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine  # noqa: E402
 from repro_torch.serve.step import UnifiedServeEngine  # noqa: E402
 
 # max |kernel - plain|: float32 differs only in summation order and exp;
@@ -28,8 +29,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA paged kernels "
-                    "have no CPU mode")
+        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have "
+                    "no CPU mode")
     return torch.device("cuda")
 
 
@@ -72,6 +73,62 @@ def test_span_kernel_matches_plain(cuda_device, dtype, window):
     assert err.item() <= TOL[dtype]
     assert (out[2] == 0).all()  # row_len == 0: zeros, never NaN
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # sq, skv, causal, window, q_offset: prompt, prefix-hit tail, window,
+    # ragged causal, ragged bidirectional, one query
+    (512, 512, True, None, 0), (256, 512, True, None, 256),
+    (512, 512, True, 100, 0), (333, 333, True, None, 0),
+    (200, 333, False, None, 0), (1, 40, True, None, 39),
+], ids=["prompt", "tail", "window", "ragged", "bidirectional", "one-query"])
+def test_flash_kernel_matches_plain(cuda_device, dtype, case):
+    sq, skv, causal, window, q_offset = case
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+    q, k, v = mk(2, sq, 32, 128), mk(2, skv, 8, 128), mk(2, skv, 8, 128)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = flash.flash_attention_fwd(q, k, v, **kw)
+    ref = flash.flash_attention_plain(q, k, v, **kw)
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_views(cuda_device):
+    """q/k/v as head slices of one fused [B, S, H, D] buffer: read in place."""
+    x = torch.randn(1, 96, 48, 128, device=cuda_device)
+    q, k, v = x[:, :, :32], x[:, :, 32:40], x[:, :, 40:]
+    torch.testing.assert_close(flash.flash_attention_fwd(q, k, v),
+                               flash.flash_attention_plain(q, k, v),
+                               atol=TOL[torch.float32], rtol=0)
+
+
+@pytest.mark.cuda
+def test_legacy_and_fixed_batch_kernel_equals_plain_greedy(cuda_device):
+    """The grouped-prefill and fixed-batch engines serve the same greedy
+    streams with the CUDA kernels (pallas) and the plain path (xla)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, (n,)).astype(np.int32) for n in (7, 16, 21, 30)]
+    streams = []
+    for mode in ("pallas", "xla"):
+        cfg = reduced(get_config("granite-8b"), kernel_mode=mode)
+        model = build_model(cfg, device=cuda_device)
+        ops.reset_counts()
+        eng = ContinuousServeEngine(cfg, model, device=cuda_device,
+                                    num_slots=2, max_len=48)
+        reqs = [eng.submit(p, 10) for p in prompts]
+        out = eng.run()
+        static = ServeEngine(cfg, model, device=cuda_device, max_len=48)
+        streams.append([out[r.rid] for r in reqs]
+                       + [static.generate(p[None], num_tokens=10)[0]
+                          for p in prompts])
+        assert (ops.flash_attention.launches > 0) == (mode == "pallas")
+    for a, b in zip(*streams):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda

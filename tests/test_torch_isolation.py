@@ -1,6 +1,7 @@
 """Torch port isolation: every ``repro_torch`` module imports, and the
-reduced CPU engine serves, in a process where ``jax`` and ``repro`` cannot
-be imported at all; no port source names them."""
+reduced CPU engines serve (the legacy one traced into a ``.prv``), in a
+process where ``jax`` and ``repro`` cannot be imported at all; no port
+source names them."""
 from __future__ import annotations
 
 import os
@@ -39,6 +40,18 @@ eng = UnifiedServeEngine(cfg, device="cpu", num_slots=1, max_len=32)
 req = eng.submit(np.arange(9, dtype=np.int32), 5)
 out = eng.run()
 assert len(out[req.rid]) == 5, out
+import tempfile
+from repro_torch import core as xtrace
+from repro_torch.serve.engine import ContinuousServeEngine
+tracer = xtrace.Tracer("isolated").init()
+legacy = ContinuousServeEngine(cfg, eng.model, device="cpu", num_slots=1,
+                               max_len=32, tracer=tracer)
+req = legacy.submit(np.arange(9, dtype=np.int32), 5)
+assert len(legacy.run()[req.rid]) == 5
+with tempfile.TemporaryDirectory() as tmp:
+    paths = xtrace.write_prv(tracer.finish(), tmp + "/serve")
+    lat = xtrace.serve_latency_summary(xtrace.parse_prv(paths["prv"]))
+assert lat["ttft_us"]["count"] == 1, lat
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print("ok", len(mods))

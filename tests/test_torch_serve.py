@@ -1,8 +1,9 @@
 """Torch port, unified serve engine on the CPU: greedy streams against a
 greedy full-recompute oracle built from the JAX package's ``forward`` (the
 JAX engines' token output is not a stable oracle on this jax CPU build —
-see ROADMAP.md Faults), host counters and the trace ledger against the
-JAX ``UnifiedServeEngine`` on the same request stream, and the CLI."""
+see ROADMAP.md Faults), host counters and the trace ledger (each engine
+under its own package's tracer) against the JAX ``UnifiedServeEngine`` on
+the same request stream, and the CLI in every ported mode."""
 from __future__ import annotations
 
 import jax
@@ -127,23 +128,26 @@ def test_preemption_and_prefix_hits_match_oracle_and_jax_counters(setup):
 
 
 def test_trace_ledger_matches_jax_engine(setup):
-    """The port keeps the engine's tracer hooks: driven with the JAX
-    package's (jax-free) Tracer on the same stream, it stamps the same
-    event ledger value for value — per-dispatch EV_STEP_BUDGET / CHUNK /
-    DECODE triples, block gauges, admit/retire/preempt order, prefix hits,
-    kernel-variant ids — everything except wall-clock latencies."""
-    from repro.core import events as ev
-    from repro.core.tracer import Tracer
+    """The port's engine under the port's own tracer and the JAX engine
+    under JAX's, on the same stream, stamp the same event ledger value for
+    value — per-dispatch EV_STEP_BUDGET / CHUNK / DECODE triples, block
+    gauges, admit/retire/preempt order, prefix hits, kernel-variant ids —
+    everything except wall-clock latencies."""
+    from repro.core.tracer import Tracer as JaxTracer
+    from repro_torch.core import events as ev
+    from repro_torch.core.tracer import Tracer
 
     jcfg, jparams, cfg, model, _ = setup
     prompts = _pressure_stream(cfg.vocab_size)
     kw = dict(num_slots=2, max_len=48, block_size=8, num_blocks=9,
               chunk_size=8)
     ledgers = []
-    for make in (lambda tr: UnifiedServeEngine(cfg, model, device="cpu",
-                                               tracer=tr, **kw),
-                 lambda tr: JaxUnifiedEngine(jcfg, jparams, tracer=tr, **kw)):
-        tracer = Tracer("ledger").init()
+    for tracer, make in (
+            (Tracer("ledger"), lambda tr: UnifiedServeEngine(
+                cfg, model, device="cpu", tracer=tr, **kw)),
+            (JaxTracer("ledger"), lambda tr: JaxUnifiedEngine(
+                jcfg, jparams, tracer=tr, **kw))):
+        tracer.init()
         eng = make(tracer)
         for p in prompts:
             eng.submit(p, 8)
@@ -179,9 +183,27 @@ def test_cli_serves_on_cpu(capsys):
     assert "12 tokens" in out and "paged_span:torch" in out
 
 
-@pytest.mark.parametrize("flag", [["--mode", "static"], ["--mp", "2"],
+@pytest.mark.parametrize("flags,expect", [
+    (["--mode", "continuous"], ["dense:torch=", "paged_decode:torch="]),
+    (["--mode", "static"], ["mode=static", "16 tokens"]),
+    (["--trace", "--flush-every", "2"], ["merged", "latency over 4 requests"]),
+    (["--mode", "continuous", "--trace"], ["serve.prv", "TTFT p50"]),
+], ids=["continuous", "static", "trace-flush", "continuous-trace"])
+def test_cli_modes_and_trace_on_cpu(capsys, tmp_path, flags, expect):
+    assert serve_cli.main(["--device", "cpu", "--requests", "4",
+                           "--prompt-len", "12", "--gen", "4",
+                           "--out", str(tmp_path), *flags]) == 0
+    out = capsys.readouterr().out
+    assert all(e in out for e in expect), out
+    if "--trace" in flags:
+        assert (tmp_path / "serve.prv").exists()
+        assert (tmp_path / "serve.pcf").exists()
+
+
+@pytest.mark.parametrize("flag", [["--beam", "2"], ["--mp", "2"],
                                   ["--spec", "ngram"], ["--kv-dtype", "int8"],
-                                  ["--trace"], ["--n", "2"]])
+                                  ["--replicas", "2"], ["--n", "2"],
+                                  ["--flush-every", "2"]])
 def test_cli_rejects_paths_not_ported(flag):
     with pytest.raises(SystemExit):
         serve_cli.main(["--device", "cpu", *flag])
