@@ -19,7 +19,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    PyTorch library call computing the same function
    (``F.scaled_dot_product_attention`` — a yardstick only, the port never
    calls it) and the least time the card could take (bytes over
-   3.35 TB/s vs flops over the dtype's peak);
+   3.35 TB/s vs flops over the dtype's peak).  The quantized bodies of
+   the paged kernels (int8 and fp8 pools with f32 scales) likewise
+   against their plain dequant-gather versions on the same pool (bf16
+   and f32 q, window off and on), timed at the same shapes (int8; the
+   SDPA yardstick runs over the pre-dequantized bf16 view, dequant
+   excluded);
 4. full-width granite-8b (36 layers, d_model 4096, bf16, random weights
    from a seed), one model object for both waves:
    a. through ``UnifiedServeEngine(device="cuda")``: 8 requests of
@@ -38,11 +43,21 @@ Phases (each prints its own lines; any failure exits non-zero):
       and no plain path may have run; first tokens as in (a); tok/s, the
       device idle share (a profiled wave) and TTFT/TPOT p50/p95 from the
       merged trace;
+   c-e. the same stream over quantized pools, same model object: (c) the
+      unified engine on an int8 pool, (d) on an fp8 pool, (e) the legacy
+      engine on an int8 pool.  Each wave must launch the quantized paged
+      bodies on its path (and the flash kernel on (e)), no native paged
+      body and no plain path; the pool must hold 76,032 B/token (bf16:
+      147,456); first tokens as in (a) at the per-dtype tolerance
+      ``FIRST_TOKEN_TOL``; tok/s and the greedy token match against the
+      bf16 wave of the same engine; a profiled wave as in (a);
 5. reduced granite (float32, 2 layers, full attention and a sliding
    window) through ``ContinuousServeEngine``, ``UnifiedServeEngine`` and
    ``ServeEngine`` with ``kernel_mode="pallas"`` (the CUDA kernels) and
    ``"xla"`` (the plain path): all six greedy streams must be identical,
-   and equal to a greedy full-recompute oracle from ``forward()``;
+   and equal to a greedy full-recompute oracle from ``forward()``; then
+   the legacy and unified engines over int8 and fp8 pools: pallas and
+   xla streams identical per engine and dtype;
 6. a ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -53,6 +68,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -64,16 +80,27 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per dtype
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |kernel - plain| (see PERF.md)
-# full width, bf16: logit gap of the engine's first token below forward()'s
-# argmax (logits ~N(0, 1); bf16 keeps ~3 digits, two attention paths)
-FIRST_TOKEN_TOL = 0.1
+# full width: logit gap of the engine's first token below forward()'s
+# argmax, per pool dtype (logits ~N(0, 1)).  bf16: ~3 digits, two
+# attention paths.  int8/fp8: twice the JAX package's 2-layer bound on
+# max|dlogit| (0.05 / 0.30) scaled by sqrt(36 / 2) for 36 layers (PERF.md)
+FIRST_TOKEN_TOL = {"fp16": 0.1, "int8": 0.5, "fp8": 2.6}
 CSRC = "src/repro_torch/kernels/attention/csrc/"
+KERNELS = ("paged_decode", "paged_span", "paged_decode_quant",
+           "paged_span_quant", "flash_attention")
 SOURCES = {"paged_decode": CSRC + "paged_attention.cu",
            "paged_span": CSRC + "paged_attention.cu",
+           "paged_decode_quant": CSRC + "paged_attention.cu",
+           "paged_span_quant": CSRC + "paged_attention.cu",
            "flash_attention": CSRC + "flash_attention.cu"}
 REPLACES = {"paged_decode": "src/repro/kernels/attention/paged.py:102",
             "paged_span": "src/repro/kernels/attention/paged.py:225",
+            "paged_decode_quant": "src/repro/kernels/attention/paged.py:43",
+            "paged_span_quant": "src/repro/kernels/attention/paged.py:158",
             "flash_attention": "src/repro/kernels/attention/flash.py:100"}
+# full-width granite-8b pool bytes per token: 36 layers x 8 kv heads x K,V
+# x (128 x 2 B) in bf16; x (128 x 1 B codes + one 4 B scale) quantized
+POOL_BYTES_PER_TOKEN = {"fp16": 147_456, "int8": 76_032, "fp8": 76_032}
 
 
 def require(cond, msg):
@@ -132,14 +159,17 @@ def _attended(bt, starts, lens, bs, window):
     return out
 
 
-def bound_ms(dtype_name, q, kp, bt, starts, lens, window, *, g):
+def bound_ms(dtype_name, q, kp, bt, starts, lens, window, *, g,
+             quantized=False):
     """Least time for the work these inputs need: every attended K/V block
-    read once per kv head, q read and out written once, tables read once,
-    against 4*D flops per (folded query row, attended key)."""
+    read once per kv head (a quantized pool: its 1-byte codes and one f32
+    K and V scale per position), q read and out written once, tables read
+    once, against 4*D flops per (folded query row, attended key)."""
     bs, hkv, d = kp.shape[1], kp.shape[2], kp.shape[3]
     item = q.element_size()
     att = _attended(bt.cpu(), starts, lens, bs, window)
-    kv_bytes = sum(blocks for blocks, _ in att) * 2 * bs * hkv * d * item
+    per_key = 2 * (d * kp.element_size() + (4 if quantized else 0))
+    kv_bytes = sum(blocks for blocks, _ in att) * bs * hkv * per_key
     io_bytes = 2 * q.numel() * item + bt.numel() * 4 + 2 * len(starts) * 4
     flops = sum(sum(keys) for _, keys in att) * hkv * g * 4 * d
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
@@ -264,6 +294,121 @@ def kernel_phase(torch, np):
     return results
 
 
+def quant_kernel_phase(torch, np):
+    """Kernels 1q/2q: the quantized bodies of the paged kernels against
+    their plain dequant-gather versions on the same int8/fp8 pool (codes
+    and scales from ``kv_quantize`` of a random pool), bf16 and f32 q,
+    window off and on; then their time at rows 1-2's main shapes (int8
+    timed for the kernels line, fp8 printed beside it)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.attention import ops, paged
+
+    rng = np.random.default_rng(4)
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    shape = dict(hkv=8, g=4, d=128, bs=16, w=34, nb=4096)  # main path
+    results = {}
+
+    def quantized(kp, vp, kv_dtype):
+        kc, ks = quant.kv_quantize(kp, kv_dtype)
+        vc, vs = quant.kv_quantize(vp, kv_dtype)
+        return kc, vc, {"k_scales": ks, "v_scales": vs}
+
+    def time_row(name, kv_dtype, err, fwd, plain, sdpa, bound):
+        r = dict(max_abs_err=err, ms=time_ms(torch, fwd, flush),
+                 plain_ms=time_ms(torch, plain, flush),
+                 library_ms=time_ms(torch, sdpa, flush))
+        r["bound_ms"], r["bound_by"] = bound
+        print(f"[smoke] {name} {kv_dtype} pool, bf16 q, main shapes: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa over the "
+              f"dequantized bf16 view {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+        if kv_dtype == "int8":
+            results[name] = r
+
+    ops.reset_counts()
+    for kv_dtype in ("int8", "fp8"):
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            for window in (None, 100):
+                dec_starts = [int(x) for x in rng.integers(200, 544, 4)]
+                q, kp, vp, bt, st, _ = _case(torch, rng, dt, b=4, q_len=1,
+                                             starts=dec_starts, lens=[1] * 4,
+                                             **shape)
+                kc, vc, sc = quantized(kp, vp, kv_dtype)
+                out = paged.paged_decode_fwd(q, kc, vc, bt, st, window=window,
+                                             **sc)
+                ref = paged.paged_decode_plain(q, kc, vc, bt, st,
+                                               window=window, **sc)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                require(torch.isfinite(out).all().item(),
+                        "paged_decode_quant non-finite")
+                print(f"[smoke] paged_decode_quant {kv_dtype} {dt_name} "
+                      f"window={window}: max|kernel-plain| {err:.3e} "
+                      f"(tol {TOL[dt_name]})")
+                require(err <= TOL[dt_name],
+                        f"paged_decode_quant {kv_dtype} {dt_name} err {err}")
+                if dt_name == "bfloat16" and window is None:
+                    kd = quant.kv_dequantize(kc, sc["k_scales"], dt)
+                    vd = quant.kv_dequantize(vc, sc["v_scales"], dt)
+                    time_row(
+                        "paged_decode_quant", kv_dtype, err,
+                        lambda: paged.paged_decode_fwd(q, kc, vc, bt, st, **sc),
+                        lambda: paged.paged_decode_plain(q, kc, vc, bt, st,
+                                                         **sc),
+                        sdpa_yardstick(torch, q, kd, vd, bt, dec_starts, 1,
+                                       None),
+                        bound_ms(dt_name, q, kc, bt, dec_starts, [1] * 4,
+                                 None, g=4, quantized=True))
+                starts, lens = [192, 416, 0], [32, 17, 0]
+                q, kp, vp, bt, st, ln = _case(torch, rng, dt, b=3, q_len=32,
+                                              starts=starts, lens=lens,
+                                              **shape)
+                kc, vc, sc = quantized(kp, vp, kv_dtype)
+                out = paged.paged_span_fwd(q, kc, vc, bt, st, ln,
+                                           window=window, **sc)
+                ref = paged.paged_span_plain(q, kc, vc, bt, st, ln,
+                                             window=window, **sc)
+                torch.cuda.synchronize()
+                valid = (torch.arange(32, device="cuda")[None] < ln[:, None])
+                err = ((out.float() - ref.float()).abs()
+                       * valid[..., None, None]).max().item()
+                require(torch.isfinite(out).all().item(),
+                        "paged_span_quant non-finite")
+                require((out[2] == 0).all().item(),
+                        "quantized row_len == 0 row not zeros")
+                print(f"[smoke] paged_span_quant {kv_dtype} {dt_name} "
+                      f"window={window}: max|kernel-plain| {err:.3e} "
+                      f"(tol {TOL[dt_name]}), row_len=0 row all zeros")
+                require(err <= TOL[dt_name],
+                        f"paged_span_quant {kv_dtype} {dt_name} err {err}")
+                if dt_name == "bfloat16" and window is None:
+                    q2, bt2, st2, ln2 = q[:2].contiguous(), bt[:2].contiguous(), \
+                        st[:2].contiguous(), ln[:2].contiguous()
+                    kd = quant.kv_dequantize(kc, sc["k_scales"], dt)
+                    vd = quant.kv_dequantize(vc, sc["v_scales"], dt)
+                    time_row(
+                        "paged_span_quant", kv_dtype, err,
+                        lambda: paged.paged_span_fwd(q2, kc, vc, bt2, st2, ln2,
+                                                     **sc),
+                        lambda: paged.paged_span_plain(q2, kc, vc, bt2, st2,
+                                                       ln2, **sc),
+                        sdpa_yardstick(torch, q2, kd, vd, bt2, starts[:2], 32,
+                                       None),
+                        bound_ms(dt_name, q2, kc, bt2, starts[:2], lens[:2],
+                                 None, g=4, quantized=True))
+    # a quantized pool without its scales is refused, never attended raw
+    try:
+        paged.paged_decode_fwd(q[:, :1].contiguous(), kc, vc, bt, st)
+    except ValueError:
+        pass
+    else:
+        require(False, "quantized codes without scales were attended")
+    del flush_buf
+    return results
+
+
 def flash_bound_ms(dtype_name, q, k, *, causal, window, q_offset):
     """Least time for a dense attention call: q, k, v read and out written
     once, against 4*D flops per (q head, query, attended key)."""
@@ -368,9 +513,11 @@ def shared_prefix_stream(rng, np, vocab, bs):
     return lens, prompts
 
 
-def check_first_tokens(torch, model, cfg, prompts, firsts, what):
+def check_first_tokens(torch, model, cfg, prompts, firsts, what,
+                       tol=FIRST_TOKEN_TOL["fp16"]):
     """Each request's first token must be the argmax of the plain
-    full-sequence ``forward()`` on its prompt up to bf16 noise."""
+    full-sequence ``forward()`` on its prompt up to ``tol`` (bf16 noise,
+    plus the pool's quantization error for an int8/fp8 pool)."""
     worst = 0.0
     with torch.inference_mode():
         for p, first in zip(prompts, firsts):
@@ -378,8 +525,8 @@ def check_first_tokens(torch, model, cfg, prompts, firsts, what):
             require(torch.isfinite(logits).all().item(), "non-finite logits")
             worst = max(worst, (logits.max() - logits[int(first)]).item())
     print(f"[smoke] {what} vs forward(): logits finite; first tokens within "
-          f"{worst:.4f} of the forward argmax logit (tol {FIRST_TOKEN_TOL})")
-    require(worst <= FIRST_TOKEN_TOL, f"{what}: first token {worst} below the argmax")
+          f"{worst:.4f} of the forward argmax logit (tol {tol})")
+    require(worst <= tol, f"{what}: first token {worst} below the argmax")
 
 
 def served(out, reqs, gen, vocab):
@@ -392,7 +539,8 @@ def served(out, reqs, gen, vocab):
 
 def full_width_phase(torch, np):
     """Phase 4: one full-width granite-8b, served by the unified engine
-    (a) and by the grouped-prefill engine with the tracer on (b)."""
+    (a) and by the grouped-prefill engine with the tracer on (b), then over
+    quantized pools: unified int8 (c) and fp8 (d), legacy int8 (e)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
@@ -404,8 +552,13 @@ def full_width_phase(torch, np):
           f"params {cfg.dtype}, {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, init {time.perf_counter() - t0:.1f}s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
-    launches = unified_wave(torch, np, cfg, model)
-    launches.update(legacy_wave(torch, np, cfg, model))
+    launches, unified_ref = unified_wave(torch, np, cfg, model)
+    legacy_launches, legacy_ref = legacy_wave(torch, np, cfg, model)
+    launches.update(legacy_launches)
+    launches.update(quant_wave(torch, np, cfg, model, "unified", "int8",
+                               unified_ref))
+    quant_wave(torch, np, cfg, model, "unified", "fp8", unified_ref)
+    quant_wave(torch, np, cfg, model, "legacy", "int8", legacy_ref)
     del model
     torch.cuda.empty_cache()
     return launches
@@ -455,7 +608,7 @@ def unified_wave(torch, np, cfg, model):
     profile_window(torch, eng, [p[:256] for p in prompts[:4]], gen, "unified")
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, [out[r.rid] for r in reqs]
 
 
 def legacy_wave(torch, np, cfg, model):
@@ -527,7 +680,73 @@ def legacy_wave(torch, np, cfg, model):
                        [out[r.rid][0] for r in reqs], "legacy, full width")
     del eng
     torch.cuda.empty_cache()
-    return {"flash_attention": launches["flash_attention"]}
+    return ({"flash_attention": launches["flash_attention"]},
+            [out[r.rid] for r in reqs])
+
+
+def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
+    """Waves (c)-(e): the phase-4 stream through the ``kind`` engine over a
+    ``kv_dtype`` pool, same model object.  Counts zeroed just before the
+    counted run and read just after; ``ref`` is the bf16 wave's greedy
+    streams of the same engine.  Returns the quantized launch counts."""
+    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.serve.engine import ContinuousServeEngine
+    from repro_torch.serve.step import UnifiedServeEngine
+
+    gen, bs = 32, 16
+    cls = UnifiedServeEngine if kind == "unified" else ContinuousServeEngine
+    eng = cls(cfg.replace(kv_dtype=kv_dtype), model, device="cuda",
+              num_slots=4, max_len=512 + gen, block_size=bs)
+    warm = eng.submit(np.arange(40, dtype=np.int32), 2)  # first launches
+    eng.run()
+    require(len(warm.tokens) == 2, "quantized warm-up request did not finish")
+    storage = str(eng.kv_storage).removeprefix("torch.")
+    lens, prompts = shared_prefix_stream(np.random.default_rng(1), np,
+                                         cfg.vocab_size, bs)
+    stats0 = dict(eng.stats)
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, gen) for p in prompts]
+    out = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"paged_decode_quant": ops.paged_attention.quant_launches,
+                "paged_span_quant": ops.paged_span_attention.quant_launches,
+                "flash_attention": ops.flash_attention.launches}
+    native = ops.paged_attention.launches + ops.paged_span_attention.launches
+    plain = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
+             + flash.flash_attention_plain.calls)
+    served(out, reqs, gen, cfg.vocab_size)
+    st = eng.stats
+    tokens = st["tokens_decoded"] - stats0["tokens_decoded"]
+    match = float(np.mean([(out[r.rid] == b).mean() for r, b in zip(reqs, ref)]))
+    hits = st["prefix_hit_tokens"] - stats0["prefix_hit_tokens"]
+    what = f"{kind} {kv_dtype}"
+    print(f"[smoke] {what}: served {len(reqs)} requests, {tokens} tokens in "
+          f"{seconds:.2f}s = {tokens / seconds:.1f} tok/s; pool {kv_dtype} "
+          f"({storage} K/V + f32 scales) {eng.kv_bytes_per_token} B/token "
+          f"(bf16 {POOL_BYTES_PER_TOKEN['fp16']}); {hits} prefix-hit tokens, "
+          f"{st['preemptions'] - stats0['preemptions']} preemptions; greedy "
+          f"token match vs the bf16 {kind} wave {match:.3f}")
+    print(f"[smoke] {what} main-path kernel launches: {launches}; native paged "
+          f"launches {native}; plain-path calls {plain}; engine dispatch "
+          f"counts {st['kernel_dispatch']}")
+    need = (("paged_decode_quant", "paged_span_quant") if kind == "unified"
+            else ("paged_decode_quant", "flash_attention"))
+    require(all(launches[k] > 0 for k in need), f"{what}: kernel idle {launches}")
+    require(native == 0, f"{what}: {native} native paged launches")
+    require(plain == 0, f"{what}: plain path ran {plain} times")
+    require(eng.kv_bytes_per_token == POOL_BYTES_PER_TOKEN[kv_dtype],
+            f"{what}: {eng.kv_bytes_per_token} B/token")
+    require(hits > 0, f"{what}: no prefix hits on the shared-prefix pairs")
+    check_first_tokens(torch, model, cfg, prompts,
+                       [out[r.rid][0] for r in reqs], f"{what}, full width",
+                       tol=FIRST_TOKEN_TOL[kv_dtype])
+    profile_window(torch, eng, [p[:256] for p in prompts[:4]], gen, what)
+    del eng
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in ("paged_decode_quant", "paged_span_quant")}
 
 
 def profile_window(torch, eng, prompts, gen, label):
@@ -634,6 +853,53 @@ def reduced_phase(torch, np):
               f"identical for the legacy, unified and fixed-batch engines "
               f"under kernel_mode pallas / xla and the forward() oracle "
               f"({len(prompts)} requests x {gen} tokens)")
+        for kv_dtype in ("int8", "fp8"):
+            quant_streams_agree(torch, np, base.replace(kv_dtype=kv_dtype),
+                                prompts, gen)
+
+
+def quant_streams_agree(torch, np, base, prompts, gen):
+    """Reduced f32 over an int8/fp8 pool: the legacy and unified engines
+    serve the same greedy streams under kernel_mode pallas (the quantized
+    CUDA bodies) and xla (the plain dequant-gather path)."""
+    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ContinuousServeEngine
+    from repro_torch.serve.step import UnifiedServeEngine
+
+    model = build_model(base, device="cuda", seed=0)
+    streams = {}
+    for mode in ("pallas", "xla"):
+        cfg = base.replace(kernel_mode=mode)
+        for name, cls, kw in (("legacy", ContinuousServeEngine, {}),
+                              ("unified", UnifiedServeEngine,
+                               {"chunk_size": 8})):
+            ops.reset_counts()
+            eng = cls(cfg, model, device="cuda", num_slots=2, max_len=48,
+                      block_size=16, **kw)
+            reqs = [eng.submit(p, gen) for p in prompts]
+            out = eng.run()
+            streams[name, mode] = [out[r.rid] for r in reqs]
+            quant = (ops.paged_attention.quant_launches
+                     + ops.paged_span_attention.quant_launches)
+            native = (ops.paged_attention.launches
+                      + ops.paged_span_attention.launches)
+            n_plain = (paged.paged_decode_plain.calls
+                       + paged.paged_span_plain.calls
+                       + flash.flash_attention_plain.calls)
+            require(native == 0 and ((quant > 0 and n_plain == 0)
+                                     if mode == "pallas" else quant == 0),
+                    f"{base.kv_dtype} {name} {mode}: {quant} quantized / "
+                    f"{native} native launches, {n_plain} plain calls")
+    for name in ("legacy", "unified"):
+        for a, b in zip(streams[name, "pallas"], streams[name, "xla"]):
+            require(np.array_equal(a, b),
+                    f"{base.kv_dtype} window={base.attention_window} {name}: "
+                    f"pallas {a} != xla {b}")
+    print(f"[smoke] reduced granite f32 {base.kv_dtype} pool window="
+          f"{base.attention_window}: legacy and unified greedy streams "
+          f"identical under kernel_mode pallas / xla ({len(prompts)} requests "
+          f"x {gen} tokens)")
 
 
 def main() -> int:
@@ -655,16 +921,29 @@ def main() -> int:
 
     t0 = time.perf_counter()
     for built in build.load_all([paged.SOURCE, flash.SOURCE]):
-        print(f"[smoke] built {built.path.name} in {built.seconds:.1f}s")
-        for line in built.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[smoke] ptxas: {line.strip()}")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", built.log)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                             built.log) if int(b)]
+        print(f"[smoke] built {built.path.name} in {built.seconds:.1f}s; "
+              f"ptxas: {len(regs)} kernels, {min(regs, default=0)}-"
+              f"{max(regs, default=0)} registers, {len(spills)} with spill "
+              f"stores (max {max(spills, default=0)} bytes)")
     print(f"[smoke] build phase {time.perf_counter() - t0:.1f}s (parallel nvcc)")
 
-    timings = kernel_phase(torch, np)
-    timings.update(flash_phase(torch, np))
-    launches = full_width_phase(torch, np)
-    reduced_phase(torch, np)
+    phase_s = {}
+
+    def timed(name, phase):
+        t = time.perf_counter()
+        out = phase(torch, np)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    timings = timed("paged kernels", kernel_phase)
+    timings.update(timed("quantized paged kernels", quant_kernel_phase))
+    timings.update(timed("flash kernel", flash_phase))
+    launches = timed("full width", full_width_phase)
+    timed("reduced", reduced_phase)
+    print(f"[smoke] phase wall seconds: {phase_s}")
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
@@ -673,7 +952,7 @@ def main() -> int:
                     bound_ms=timings[name]["bound_ms"],
                     bound_by=timings[name]["bound_by"],
                     library_ms=timings[name]["library_ms"])
-               for name in ("paged_decode", "paged_span", "flash_attention")]
+               for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,20 @@
 // Helpers shared by the port's CUDA sources: f32 <-> element conversions
-// for the two dtypes the kernels take, and the dtype x head_dim dispatch
-// of a templated launcher from a plain C entry point.
+// for the two dtypes the kernels take (and the quantized KV pool's int8 /
+// fp8 e4m3 codes, read only), and the dtype x head_dim dispatch of a
+// templated launcher from a plain C entry point.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
+#include <stdint.h>
 
 namespace repro {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
+// e4m3 -> f32 through the hardware cvt (e4m3 -> f16, exact) on sm_89+
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);

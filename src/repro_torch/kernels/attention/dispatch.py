@@ -12,17 +12,22 @@ the JAX package's names (``cfg.kernel_mode``, overridable via
   path for a CPU tensor);
 * ``xla`` — always the plain torch path.
 
-There is no silent fallback on the card: a shape or dtype the kernels do
-not take raises on CUDA unless the caller asked for ``xla``.  Engines log
+There is no silent fallback on the card: a shape, dtype or KV storage
+dtype (``kv_dtype``) the kernels do not take raises on CUDA unless the
+caller asked for ``xla``.  The paged kernels take native (``fp16``),
+``int8`` and ``fp8`` pools; the dense kernel reads no pool and takes
+native K/V only.  Engines log
 per-variant dispatch counts (``stats["kernel_dispatch"]``) and emit
 EV_KERNEL_VARIANT with the ``KERNEL_VARIANT_IDS`` value of what ran; the
-ids are the JAX package's, ``cuda`` taking the old ``pallas`` entries.
+ids are the JAX package's, ``cuda`` taking the old ``pallas`` entries;
+like the JAX package's, they do not tell quantized dispatches apart.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 
+from repro_torch.core.quant import KV_DTYPES
 from repro_torch.kernels.attention.paged import HEAD_DIMS
 
 MODES = ("auto", "pallas", "xla")
@@ -68,13 +73,17 @@ def mode_from(cfg) -> str:
 
 
 def resolve(mode: str, variant: str, *, head_dim: int, dtype: str,
-            platform: str) -> KernelDecision:
+            platform: str, kv_dtype: str = "fp16") -> KernelDecision:
     """Decide cuda-vs-torch for one call site.  ``platform`` is the device
-    type of the tensors (``"cuda"`` or ``"cpu"``)."""
+    type of the tensors (``"cuda"`` or ``"cpu"``); ``kv_dtype`` is the KV
+    storage the call site reads (``cfg.kv_dtype`` for the paged
+    variants)."""
     if mode not in MODES:
         raise ValueError(f"kernel_mode {mode!r}: expected one of {MODES}")
     if variant not in VARIANTS:
         raise ValueError(f"kernel variant {variant!r}: expected one of {VARIANTS}")
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype {kv_dtype!r}: expected one of {KV_DTYPES}")
     if mode == "xla":
         return KernelDecision(variant, "torch", "mode=xla")
     why = ""
@@ -83,6 +92,8 @@ def resolve(mode: str, variant: str, *, head_dim: int, dtype: str,
         why = f"dtype {dtype} unsupported"
     elif head_dim not in HEAD_DIMS:
         why = f"head_dim {head_dim} not lane-tileable"
+    elif variant == "dense" and kv_dtype != "fp16":
+        why = f"the dense kernel takes no {kv_dtype} K/V"
     if why:
         if platform == "cuda":
             raise NotImplementedError(
@@ -100,5 +111,6 @@ def engine_plan(cfg, *, platform: str) -> dict[str, KernelDecision]:
     per-dispatch accounting)."""
     mode = mode_from(cfg)
     return {v: resolve(mode, v, head_dim=cfg.head_dim, dtype=cfg.dtype,
-                       platform=platform)
+                       platform=platform,
+                       kv_dtype="fp16" if v == "dense" else cfg.kv_dtype)
             for v in VARIANTS}

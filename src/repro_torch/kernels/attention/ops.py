@@ -5,14 +5,17 @@ The public signatures are the JAX package's (``ops.flash_attention``,
 takes the model layout q ``[B, Sq, Hq, D]``, k/v ``[B, Skv, Hkv, D]`` as
 is (no head-major swap, no padding).  The paged kernels take pool leaves
 ``{"k", "v"}`` in the engine layout ``[NB, bs, Hkv, D]``, q
-``[B, Q, Hq, D]`` with q head ``h = kh * G + g``.  Unlike the JAX
-wrapper, nothing here transposes the pool: the CUDA kernels read it in
-place through its strides, and the GQA span fold (row ``j * G + g``) is
-done by the kernel's own indexing.
+``[B, Q, Hq, D]`` with q head ``h = kh * G + g``; a quantized pool adds
+its ``{"k_scale", "v_scale"}`` leaves ``[NB, bs, Hkv]``.  Unlike the JAX
+wrapper, nothing here transposes the pool or its scales: the CUDA kernels
+read both in place through their strides, and the GQA span fold (row
+``j * G + g``) is done by the kernel's own indexing.
 
 A CUDA tensor launches the kernel (or the launch raises); a CPU tensor
 takes the plain torch version — the only case in which it does.  Each
-wrapper counts its kernel launches in ``.launches``.
+paged wrapper counts its launches on a native pool in ``.launches`` and
+on a quantized pool in ``.quant_launches``; the dense one in
+``.launches``.
 """
 from __future__ import annotations
 
@@ -20,11 +23,16 @@ from repro_torch.kernels.attention import flash, paged
 
 
 def _pool(cache):
-    if "k_scale" in cache or "v_scale" in cache:
-        raise NotImplementedError(
-            "quantized (int8/fp8) pools are not ported yet: the paged "
-            "kernels take native-dtype pools only")
-    return cache["k"], cache["v"]
+    """(k, v, scale kwargs) of a pool entry; the scales in place."""
+    return cache["k"], cache["v"], {"k_scales": cache.get("k_scale"),
+                                    "v_scales": cache.get("v_scale")}
+
+
+def _count(wrapper, scales):
+    if scales["k_scales"] is None:
+        wrapper.launches += 1
+    else:
+        wrapper.quant_launches += 1
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -41,14 +49,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
 
 def paged_attention(cache, q, block_tables, index, *, window: int | None = None):
-    """Paged decode.  cache: {"k","v"} [NB, bs, Hkv, D]; q: [B, 1, Hq, D];
-    block_tables: [B, W] int32; index: [B] int32.  Returns [B, 1, Hq, D]."""
-    kp, vp = _pool(cache)
+    """Paged decode.  cache: {"k","v"} [NB, bs, Hkv, D] (+ {"k_scale",
+    "v_scale"} [NB, bs, Hkv]); q: [B, 1, Hq, D]; block_tables: [B, W]
+    int32; index: [B] int32.  Returns [B, 1, Hq, D]."""
+    kp, vp, scales = _pool(cache)
     if not q.is_cuda:
         return paged.paged_decode_plain(q, kp, vp, block_tables, index,
-                                        window=window)
-    out = paged.paged_decode_fwd(q, kp, vp, block_tables, index, window=window)
-    paged_attention.launches += 1
+                                        window=window, **scales)
+    out = paged.paged_decode_fwd(q, kp, vp, block_tables, index,
+                                 window=window, **scales)
+    _count(paged_attention, scales)
     return out
 
 
@@ -57,26 +67,25 @@ def paged_span_attention(cache, q, block_tables, row_start, row_len, *,
     """Ragged multi-query paged attention.  q: [B, Q, Hq, D]; row ``b`` has
     ``row_len[b]`` valid queries at ``row_start[b] + j``.  Returns
     [B, Q, Hq, D]; padded query rows are garbage the caller discards."""
-    kp, vp = _pool(cache)
+    kp, vp, scales = _pool(cache)
     if not q.is_cuda:
         return paged.paged_span_plain(q, kp, vp, block_tables, row_start,
-                                      row_len, window=window)
+                                      row_len, window=window, **scales)
     out = paged.paged_span_fwd(q, kp, vp, block_tables, row_start, row_len,
-                               window=window)
-    paged_span_attention.launches += 1
+                               window=window, **scales)
+    _count(paged_span_attention, scales)
     return out
-
-
-flash_attention.launches = 0
-paged_attention.launches = 0
-paged_span_attention.launches = 0
 
 
 def reset_counts() -> None:
     """Zero every kernel launch count and plain-path call count."""
     flash_attention.launches = 0
     flash.flash_attention_plain.calls = 0
-    paged_attention.launches = 0
-    paged_span_attention.launches = 0
+    for wrapper in (paged_attention, paged_span_attention):
+        wrapper.launches = 0
+        wrapper.quant_launches = 0
     paged.paged_decode_plain.calls = 0
     paged.paged_span_plain.calls = 0
+
+
+reset_counts()

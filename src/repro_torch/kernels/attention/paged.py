@@ -3,7 +3,11 @@
 
 Both read K/V straight from the engine's pool layout ``[NB, bs, Hkv, D]``
 through per-row block tables; q and the output keep the engine layout
-``[B, Q, Hq, D]`` with q head ``h = kh * G + g``.
+``[B, Q, Hq, D]`` with q head ``h = kh * G + g``.  A quantized pool
+(int8 or float8_e4m3fn codes) comes with its per-(position, kv-head)
+float32 scales ``k_scales``/``v_scales`` in the engine layout
+``[NB, bs, Hkv]``; the kernels dequantize inside the softmax loop, the
+plain versions dequantize the gathered view to q's dtype.
 
 * :func:`paged_decode_fwd` / :func:`paged_decode_plain` — one query token
   per slot (``Q == 1``) at absolute position ``index[b]``.
@@ -13,7 +17,8 @@ through per-row block tables; q and the output keep the engine layout
   writes zeros for a row with ``row_len == 0``).
 
 The plain versions are the JAX package's XLA path (gather the row's
-blocks into a ``[W * bs]`` view, masked float32 softmax): the CPU path
+blocks into a ``[W * bs]`` view, dequantized through the gathered scales
+for a quantized pool, masked float32 softmax): the CPU path
 and the reference the kernels are held against on the card.  The
 ``*_fwd`` launchers run only on CUDA tensors and raise on anything the
 kernel does not take.
@@ -27,12 +32,15 @@ import pathlib
 
 import torch
 
+from repro_torch.core import quant
 from repro_torch.kernels import build
 
 NEG_INF = -2.0e38
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernels are built for
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+# pool storage: 0 = q's dtype (native), else quantized codes with scales
+_KV_IDS = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _MAX_ROWS_PER_CTA = 16  # decode: kDecodeWarps * kDecodeRows in the source
 _STAGES = 4  # kStages in the source: K/V blocks staged per CTA
 _SMEM_LIMIT = 227 * 1024  # shared memory one CTA may use on Hopper
@@ -43,8 +51,21 @@ _SMEM_LIMIT = 227 * 1024  # shared memory one CTA may use on Hopper
 # ----------------------------------------------------------------------
 def _gather(pages, block_tables):
     b, w = block_tables.shape
-    g = pages[block_tables.long()]  # [B, W, bs, Hkv, D]
-    return g.reshape(b, w * pages.shape[1], *pages.shape[2:])
+    g = quant.raw(pages)[block_tables.long()]  # [B, W, bs, Hkv(, D)]
+    return g.reshape(b, w * pages.shape[1], *pages.shape[2:]).view(pages.dtype)
+
+
+def _gathered_view(pages, scales, block_tables, dtype):
+    """A row's logical [B, W * bs, Hkv, D] view of one pool leaf; a
+    quantized leaf is dequantized to ``dtype`` through its gathered
+    scales (the JAX ``_gathered_view``)."""
+    if (pages.dtype in _KV_IDS) != (scales is not None):
+        raise ValueError(f"a {pages.dtype} pool takes "
+                         f"{'its scales' if scales is None else 'no scales'}")
+    g = _gather(pages, block_tables)
+    if scales is None:
+        return g
+    return quant.kv_dequantize(g, _gather(scales, block_tables), dtype)
 
 
 def masked_attention(q, k, v, q_pos, kv_pos, *, window=None, kv_valid=None,
@@ -75,11 +96,14 @@ def masked_attention(q, k, v, q_pos, kv_pos, *, window=None, kv_valid=None,
 
 
 def paged_decode_plain(q, k_pages, v_pages, block_tables, index, *,
-                       window: int | None = None):
-    """q: [B, 1, Hq, D]; pages [NB, bs, Hkv, D]; block_tables [B, W];
-    index [B] (absolute position of the token; keys <= index attend)."""
+                       window: int | None = None, k_scales=None,
+                       v_scales=None):
+    """q: [B, 1, Hq, D]; pages [NB, bs, Hkv, D] (scales [NB, bs, Hkv] for
+    a quantized pool); block_tables [B, W]; index [B] (absolute position
+    of the token; keys <= index attend)."""
     paged_decode_plain.calls += 1
-    kg, vg = _gather(k_pages, block_tables), _gather(v_pages, block_tables)
+    kg = _gathered_view(k_pages, k_scales, block_tables, q.dtype)
+    vg = _gathered_view(v_pages, v_scales, block_tables, q.dtype)
     kv_pos = torch.arange(kg.shape[1], device=q.device)
     index = index.long()
     return masked_attention(q, kg, vg, index[:, None], kv_pos, window=window,
@@ -87,10 +111,11 @@ def paged_decode_plain(q, k_pages, v_pages, block_tables, index, *,
 
 
 def paged_span_plain(q, k_pages, v_pages, block_tables, row_start, row_len, *,
-                     window: int | None = None):
+                     window: int | None = None, k_scales=None, v_scales=None):
     """q: [B, Q, Hq, D]; row b's query j sits at row_start[b] + j."""
     paged_span_plain.calls += 1
-    kg, vg = _gather(k_pages, block_tables), _gather(v_pages, block_tables)
+    kg = _gathered_view(k_pages, k_scales, block_tables, q.dtype)
+    vg = _gathered_view(v_pages, v_scales, block_tables, q.dtype)
     kv_pos = torch.arange(kg.shape[1], device=q.device)
     q_pos = row_start.long()[:, None] + torch.arange(q.shape[1], device=q.device)
     return masked_attention(q, kg, vg, q_pos, kv_pos, window=window)
@@ -109,10 +134,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE).lib
-    lib.paged_decode_launch.argtypes = ([_P] * 6 + [_I] * 7 + [_L] * 6
+    lib.paged_decode_launch.argtypes = ([_P] * 8 + [_I] * 8 + [_L] * 12
                                         + [_I, _F, _P])
     lib.paged_decode_launch.restype = _I
-    lib.paged_span_launch.argtypes = ([_P] * 7 + [_I] * 8 + [_L] * 6
+    lib.paged_span_launch.argtypes = ([_P] * 9 + [_I] * 9 + [_L] * 12
                                       + [_I, _F, _P])
     lib.paged_span_launch.restype = _I
     return lib
@@ -124,7 +149,8 @@ def build_kernels() -> build.Built:
     return build.load(SOURCE)
 
 
-def _check(q, k_pages, v_pages, block_tables, rows: dict, *, max_g=None):
+def _check(q, k_pages, v_pages, block_tables, rows: dict, k_scales, v_scales,
+           *, max_g=None):
     if not q.is_cuda:
         raise ValueError("the CUDA paged kernels take CUDA tensors")
     dev = q.device
@@ -134,9 +160,19 @@ def _check(q, k_pages, v_pages, block_tables, rows: dict, *, max_g=None):
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
     if q.dtype not in _DTYPE_IDS:
         raise ValueError(f"dtype {q.dtype} unsupported (float32, bfloat16)")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise ValueError("pool and q dtypes differ "
-                         f"({k_pages.dtype}/{v_pages.dtype} vs {q.dtype})")
+    if k_pages.dtype != v_pages.dtype:
+        raise ValueError(f"K and V pools differ ({k_pages.dtype} vs "
+                         f"{v_pages.dtype})")
+    quantized = k_pages.dtype in _KV_IDS
+    if not quantized and k_pages.dtype != q.dtype:
+        raise ValueError(f"pool dtype {k_pages.dtype} is neither q's "
+                         f"({q.dtype}) nor a quantized storage dtype "
+                         f"(int8, float8_e4m3fn)")
+    if quantized != (k_scales is not None) or \
+            (k_scales is None) != (v_scales is None):
+        raise ValueError(
+            f"a {k_pages.dtype} pool takes "
+            f"{'k_scales and v_scales' if quantized else 'no scales'}")
     if q.dim() != 4 or not q.is_contiguous():
         raise ValueError("q must be a contiguous [B, Q, Hq, D] tensor")
     b, _, hq, d = q.shape
@@ -147,12 +183,20 @@ def _check(q, k_pages, v_pages, block_tables, rows: dict, *, max_g=None):
         raise ValueError(f"pool pages must be [NB, bs, Hkv, {d}], got "
                          f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
     hkv, bs = k_pages.shape[2], k_pages.shape[1]
+    if quantized:
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if t.dtype != torch.float32 or t.device != dev \
+                    or t.shape != k_pages.shape[:3]:
+                raise ValueError(f"{name} must be float32 "
+                                 f"{list(k_pages.shape[:3])} on {dev}, got "
+                                 f"{t.dtype} {list(t.shape)} on {t.device}")
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     if max_g is not None and hq // hkv > max_g:
         raise ValueError(f"GQA group {hq // hkv} > {max_g} rows per CTA")
-    item = q.element_size()
-    if bs % 8 or _STAGES * 2 * bs * d * item > _SMEM_LIMIT:
+    item = k_pages.element_size()
+    stage = 2 * bs * d * item + (2 * bs * 4 if quantized else 0)
+    if bs % 8 or _STAGES * stage > _SMEM_LIMIT:
         raise ValueError(f"block_size {bs} must be a multiple of 8 and "
                          f"{_STAGES} staged K/V blocks of {bs} x {d} must fit "
                          f"shared memory")
@@ -178,45 +222,53 @@ def _window(window):
     return 0 if window is None else int(window)
 
 
-def _strides(t):
-    return t.stride(0), t.stride(1), t.stride(2)
+def _pool_args(k_pages, v_pages, k_scales, v_scales):
+    """(storage id, scale pointers, 12 element strides) of a pool: K and V
+    pages [blk, pos, head], then the K and V scales (0 for a native pool)."""
+    strides = [s for t in (k_pages, v_pages) for s in t.stride()[:3]]
+    if k_scales is None:
+        return 0, 0, 0, strides + [0] * 6
+    return (_KV_IDS[k_pages.dtype], k_scales.data_ptr(), v_scales.data_ptr(),
+            strides + [s for t in (k_scales, v_scales) for s in t.stride()])
 
 
 def paged_decode_fwd(q, k_pages, v_pages, block_tables, index, *,
-                     window: int | None = None):
+                     window: int | None = None, k_scales=None, v_scales=None):
     """Launch the CUDA paged-decode kernel on the current stream.
     q: [B, 1, Hq, D] -> [B, 1, Hq, D]."""
     if q.dim() == 4 and q.shape[1] != 1:
         raise ValueError(f"paged decode takes one query per slot, got {q.shape}")
     b, hq, hkv, d, w, bs = _check(q, k_pages, v_pages, block_tables,
-                                  {"index": index}, max_g=_MAX_ROWS_PER_CTA)
+                                  {"index": index}, k_scales, v_scales,
+                                  max_g=_MAX_ROWS_PER_CTA)
+    kv, ks, vs, strides = _pool_args(k_pages, v_pages, k_scales, v_scales)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().paged_decode_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
         block_tables.data_ptr(), index.data_ptr(), out.data_ptr(),
-        _DTYPE_IDS[q.dtype], b, hq, hkv, d, w, bs,
-        *_strides(k_pages), *_strides(v_pages), _window(window),
-        1.0 / math.sqrt(d), stream)
+        _DTYPE_IDS[q.dtype], kv, b, hq, hkv, d, w, bs, *strides,
+        _window(window), 1.0 / math.sqrt(d), stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {rc}")
     return out
 
 
 def paged_span_fwd(q, k_pages, v_pages, block_tables, row_start, row_len, *,
-                   window: int | None = None):
+                   window: int | None = None, k_scales=None, v_scales=None):
     """Launch the CUDA ragged-span kernel on the current stream.
     q: [B, Q, Hq, D] -> [B, Q, Hq, D]."""
     b, hq, hkv, d, w, bs = _check(q, k_pages, v_pages, block_tables,
-                                  {"row_start": row_start, "row_len": row_len})
+                                  {"row_start": row_start, "row_len": row_len},
+                                  k_scales, v_scales)
+    kv, ks, vs, strides = _pool_args(k_pages, v_pages, k_scales, v_scales)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().paged_span_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
         block_tables.data_ptr(), row_start.data_ptr(), row_len.data_ptr(),
-        out.data_ptr(), _DTYPE_IDS[q.dtype], b, q.shape[1], hq, hkv, d, w, bs,
-        *_strides(k_pages), *_strides(v_pages), _window(window),
-        1.0 / math.sqrt(d), stream)
+        out.data_ptr(), _DTYPE_IDS[q.dtype], kv, b, q.shape[1], hq, hkv, d, w,
+        bs, *strides, _window(window), 1.0 / math.sqrt(d), stream)
     if rc != 0:
         raise RuntimeError(f"paged_span launch failed: CUDA error {rc}")
     return out

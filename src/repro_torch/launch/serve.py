@@ -17,9 +17,12 @@ weights from ``--seed`` through ``--mode unified``
 Paraver trace to ``<--out>/serve.prv`` (``--flush-every N`` streams
 segments to disk every N decode iterations first), then prints the
 TTFT/TPOT summary read from it.  ``--device`` picks the card (default)
-or, explicitly, the CPU.  Flags of paths not ported yet (meshes,
-replicas, speculative decoding, forks, beams, sessions, quantized pools,
-the two-deep overlap pipeline) stop with an error naming the flag.
+or, explicitly, the CPU.  ``--kv-dtype int8|fp8`` quantizes the paged
+pool of the unified and continuous modes (the pool line prints its
+storage and bytes per token); ``--mode static`` keeps contiguous caches
+in the model dtype, as the JAX CLI does.  Flags of paths not ported yet
+(meshes, replicas, speculative decoding, forks, beams, sessions, the
+two-deep overlap pipeline) stop with an error naming the flag.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import numpy as np
 # path that is not ported yet
 _PORTED_VALUES = {
     "mesh": ("",), "mp": (0,), "n": (1,), "best_of": (0,), "beam": (0,),
-    "session": (False,), "spec": ("",), "kv_dtype": ("", "fp16"),
+    "session": (False,), "spec": ("",),
     "overlap": ("", "off", "auto"), "replicas": (0,), "disaggregate": (False,),
 }
 
@@ -114,6 +117,8 @@ def main(argv=None):
                 f"serves the dense family only")
     if args.kernel_mode:
         cfg = cfg.replace(kernel_mode=args.kernel_mode)
+    if args.kv_dtype:
+        cfg = cfg.replace(kv_dtype=args.kv_dtype)
     model = build_model(cfg, device=args.device, seed=args.seed)
     out = pathlib.Path(args.out)
     slots = min(args.slots, args.requests)
@@ -158,9 +163,11 @@ def main(argv=None):
           f"{stats['tokens']} tokens in {stats['seconds']:.2f}s = "
           f"{stats['tok_per_s']:.1f} tok/s (host syncs: {stats['host_syncs']})")
     if args.mode != "static":
+        storage = str(engine.kv_storage).removeprefix("torch.")
         print(f"[serve] paged pool: {engine.num_blocks - 1} blocks x "
-              f"{engine.block_size} tokens ({engine.kv_bytes_per_token} "
-              f"B/token); peak {stats['peak_blocks']} in use, "
+              f"{engine.block_size} tokens ({engine.pool.kv_dtype} storage, "
+              f"{storage} K/V, {engine.kv_bytes_per_token} B/token); "
+              f"peak {stats['peak_blocks']} in use, "
               f"{stats['prefix_hit_tokens']} prefix-hit tokens, "
               f"{stats['preemptions']} preemptions, "
               f"{stats['evictions']} cache evictions")

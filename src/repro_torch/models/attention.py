@@ -4,7 +4,10 @@ prefill, dense flash kernel), tail prefill against a resident prefix
 (prefix-cache hit), single-token decode against a contiguous full or ring
 cache (the fixed-batch engine), and the two paged serve paths —
 single-token decode and per-row query spans — over the pooled
-``[NB, bs, Hkv, D]`` K/V leaves.
+``[NB, bs, Hkv, D]`` K/V leaves, native or quantized (``cfg.kv_dtype``
+int8/fp8: codes plus per-(position, kv-head) ``k_scale``/``v_scale``
+leaves; attention reads them through the fused-dequant kernels or the
+plain dequant-gather path).
 
 Cache writes happen in place (see :mod:`repro_torch.models.cache_utils`).
 Each kernel call site asks
@@ -16,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core import quant
 from repro_torch.kernels.attention import dispatch as kdispatch
 from repro_torch.kernels.attention import flash
 from repro_torch.kernels.attention import ops as att_ops
@@ -52,10 +56,13 @@ def attention_block(attn: Attention, x, cfg, *, positions, cache=None,
       positions ``0..S-1``.  With ``build_cache`` the layer's fresh
       {"k", "v"} cache is returned — capacity ``min(cache_len, window)``,
       ring-arranged; ``ring=False`` (paged prefill) keeps full-length K/V
-      even under a sliding window.  Otherwise new_cache is None.
+      even under a sliding window and, for a quantized ``cfg.kv_dtype``,
+      returns it quantized (the attention itself ran at full precision).
+      Otherwise new_cache is None.
     * tail prefill (``cache`` given, ``index is None``): x is the tail of
       a prompt whose first ``P`` positions are in ``cache`` ({"k", "v"}
-      [B, P, Hkv, D]); returns the tail's K/V only.
+      [B, P, Hkv, D], + scales from a quantized pool); returns the tail's
+      K/V only, quantized like the prefix.
     * contiguous decode (``cache`` given, no ``block_tables``): one token
       per row at absolute position ``index`` (0-d or [B]); the cache
       [B, C, Hkv, D] is written in place (new_cache None).
@@ -80,6 +87,12 @@ def attention_block(attn: Attention, x, cfg, *, positions, cache=None,
         o = _dense_attend(q, k, v, 0, window, cfg)
         if build_cache:
             new_cache = _build_cache(k, v, window if ring else None, cache_len)
+            if not ring and cfg.kv_dtype != "fp16":
+                # paged prefill headed for a quantized pool: quantize per
+                # (position, kv head) AFTER padding (all-zero pad rows give
+                # code 0 / scale 1e-12), so the engine's scatter moves
+                # storage-dtype leaves verbatim
+                new_cache = _quantize_entry(new_cache, cfg.kv_dtype)
     elif index is None:
         o, new_cache = _chunk_attend(q, k, v, cache, window, cfg)
     elif block_tables is None:
@@ -94,9 +107,10 @@ def attention_block(attn: Attention, x, cfg, *, positions, cache=None,
 
 
 def _decide(variant, q, cfg):
-    return kdispatch.resolve(kdispatch.mode_from(cfg), variant,
-                             head_dim=q.shape[-1], dtype=str(q.dtype),
-                             platform=q.device.type)
+    return kdispatch.resolve(
+        kdispatch.mode_from(cfg), variant, head_dim=q.shape[-1],
+        dtype=str(q.dtype), platform=q.device.type,
+        kv_dtype="fp16" if variant == "dense" else cfg.kv_dtype)
 
 
 def _dense_attend(q, k, v, q_offset: int, window, cfg):
@@ -140,18 +154,42 @@ def _build_cache(k, v, window, cache_len=None):
             "v": torch.roll(v[:, s - c:], shift, dims=1)}
 
 
+def _quantize_entry(entry, kv_dtype: str):
+    """{"k", "v"} [B, S, Hkv, D] -> codes + {"k_scale", "v_scale"}."""
+    out = {}
+    for name in ("k", "v"):
+        out[name], out[name + "_scale"] = quant.kv_quantize(entry[name],
+                                                            kv_dtype)
+    return out
+
+
+def _dequantize_entry(entry, dtype):
+    """Inverse of :func:`_quantize_entry`, in ``dtype``; a native entry
+    is returned in ``dtype``."""
+    if "k_scale" not in entry:
+        return {name: entry[name].to(dtype) for name in ("k", "v")}
+    return {name: quant.kv_dequantize(entry[name], entry[name + "_scale"],
+                                      dtype) for name in ("k", "v")}
+
+
 def _chunk_attend(q, k_new, v_new, prefix, window, cfg):
     """Tail prefill against a resident prefix (prefix-cache hit).
 
-    prefix: {"k", "v"} [B, P, Hkv, D], the gathered prefix blocks.  Attends
-    q (positions ``P + i``) over prefix ++ tail with the causal/window
-    mask and returns ONLY the tail K/V (the prefix blocks are shared and
-    never rewritten)."""
-    p = prefix["k"].shape[1]
-    kc = torch.cat([prefix["k"].to(k_new.dtype), k_new], dim=1)
-    vc = torch.cat([prefix["v"].to(v_new.dtype), v_new], dim=1)
+    prefix: {"k", "v"} [B, P, Hkv, D], the gathered prefix blocks (a
+    quantized pool's also carry gathered {"k_scale", "v_scale"}
+    [B, P, Hkv]: the prefix is dequantized for the attention and the
+    returned tail re-quantized).  Attends q (positions ``P + i``) over
+    prefix ++ tail with the causal/window mask and returns ONLY the tail
+    K/V (the prefix blocks are shared and never rewritten)."""
+    pfx = _dequantize_entry(prefix, k_new.dtype)
+    p = pfx["k"].shape[1]
+    kc = torch.cat([pfx["k"], k_new], dim=1)
+    vc = torch.cat([pfx["v"], v_new], dim=1)
     o = _dense_attend(q, kc, vc, p, window, cfg)
-    return o, {"k": k_new, "v": v_new}
+    tail = {"k": k_new, "v": v_new}
+    if "k_scale" in prefix:
+        tail = _quantize_entry(tail, cfg.kv_dtype)
+    return o, tail
 
 
 def _decode_attend(q, k_new, v_new, cache, index, window):
@@ -168,17 +206,26 @@ def _decode_attend(q, k_new, v_new, cache, index, window):
                                   kv_valid=kv_valid)
 
 
+def _scales(pool):
+    return {"k_scales": pool.get("k_scale"), "v_scales": pool.get("v_scale")}
+
+
 def _paged_decode_attend(q, k_new, v_new, pool, index, block_tables, window, cfg):
     """Single-token decode against the pool: write at
-    ``table[b, index // bs]`` offset ``index % bs``, then attend.  Retired
-    or masked slots point at the NULL block, absorbing their writes."""
-    cache_utils.paged_cache_write(pool["k"], pool["v"], k_new, v_new,
-                                  block_tables, index)
+    ``table[b, index // bs]`` offset ``index % bs`` (quantize-on-write for
+    a quantized pool), then attend.  Retired or masked slots point at the
+    NULL block, absorbing their writes."""
+    if "k_scale" in pool:
+        cache_utils.quantized_cache_write(pool, k_new, v_new, block_tables,
+                                          index, cfg.kv_dtype)
+    else:
+        cache_utils.paged_cache_write(pool["k"], pool["v"], k_new, v_new,
+                                      block_tables, index)
     if _decide("paged_decode", q, cfg).backend == "cuda":
         return att_ops.paged_attention(pool, q, block_tables, index,
                                        window=window)
     return paged.paged_decode_plain(q, pool["k"], pool["v"], block_tables,
-                                    index, window=window)
+                                    index, window=window, **_scales(pool))
 
 
 def _paged_span_attend(q, k_new, v_new, pool, row_start, row_len,
@@ -187,10 +234,15 @@ def _paged_span_attend(q, k_new, v_new, pool, row_start, row_len,
     its blocks FIRST (padding columns into the NULL block), then attend —
     intra-chunk causality needs no special case because chunk tokens sit
     at their final pool positions before the read."""
-    cache_utils.paged_span_write(pool["k"], pool["v"], k_new, v_new,
-                                 block_tables, row_start, row_len)
+    if "k_scale" in pool:
+        cache_utils.quantized_span_write(pool, k_new, v_new, block_tables,
+                                         row_start, row_len, cfg.kv_dtype)
+    else:
+        cache_utils.paged_span_write(pool["k"], pool["v"], k_new, v_new,
+                                     block_tables, row_start, row_len)
     if _decide("paged_span", q, cfg).backend == "cuda":
         return att_ops.paged_span_attention(pool, q, block_tables, row_start,
                                             row_len, window=window)
     return paged.paged_span_plain(q, pool["k"], pool["v"], block_tables,
-                                  row_start, row_len, window=window)
+                                  row_start, row_len, window=window,
+                                  **_scales(pool))

@@ -8,6 +8,8 @@ with ``model.load_state_dict(convert.params_from_jax(tree))``.
 """
 from __future__ import annotations
 
+import copy
+
 import torch
 from torch import nn
 
@@ -76,6 +78,21 @@ class DecoderLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embedding.device
+
+    def serving_view(self, cfg: ModelConfig) -> "DecoderLM":
+        """These weights run under ``cfg``, which may differ from the
+        model's own config only in how it is served (``kv_dtype``,
+        ``kernel_mode``): a shallow copy sharing every parameter, so one
+        model object serves native and quantized pools alike."""
+        if cfg == self.cfg:
+            return self
+        if self.cfg.replace(kv_dtype=cfg.kv_dtype,
+                            kernel_mode=cfg.kernel_mode) != cfg:
+            raise ValueError("the engine's config differs from the model's "
+                             "beyond kv_dtype and kernel_mode")
+        view = copy.copy(self)
+        view.cfg = cfg
+        return view
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -156,8 +173,10 @@ class DecoderLM(nn.Module):
 
     # ------------------------------------------------------------------
     def paged_cache_specs(self, num_slots: int, num_blocks: int, block_size: int):
-        """{"k", "v"} -> (shape [L, NB, bs, Hkv, D], dtype): every cache
-        leaf of the dense stack is pooled (``num_slots`` holds no state)."""
+        """{"k", "v"} -> (shape [L, NB, bs, Hkv, D], dtype), plus
+        {"k_scale", "v_scale"} [L, NB, bs, Hkv] f32 for a quantized pool:
+        every cache leaf of the dense stack is pooled (``num_slots`` holds
+        no state)."""
         return tf_mod.stack_paged_cache_spec(self.cfg, num_blocks, block_size,
                                              self.dtype)
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core import quant
 from repro_torch.models.attention import Attention, attention_block
 from repro_torch.models.layers import apply_mlp, rmsnorm
 
@@ -67,14 +68,17 @@ def apply_stack(layers, x, cfg, *, positions, caches=None, index=None,
     ``mode``: "forward" (no caches; new_caches None), "prefill" (new_caches
     = each layer's fresh K/V stacked: {"k", "v"} [L, B, C, Hkv, D];
     ``ring=False`` keeps full-length K/V under a sliding window, for the
-    paged pool) or "decode".  In decode mode ``caches`` holds stacked
+    paged pool, quantized with {"k_scale", "v_scale"} [L, B, C, Hkv] when
+    ``cfg.kv_dtype`` is int8/fp8) or "decode".  In decode mode ``caches`` holds stacked
     leaves [L, ...] and layer ``l`` reads ``caches[leaf][l]``:
 
     * paged pool [L, NB, bs, Hkv, D] with ``block_tables`` (and
       ``row_len`` for spans), or contiguous caches [L, B, C, Hkv, D]
       without: written in place, new_caches None;
     * ``index is None``: tail prefill against a gathered prefix
-      [L, B, P, Hkv, D]; new_caches = the tail's K/V [L, B, S, Hkv, D].
+      [L, B, P, Hkv, D] (+ scales [L, B, P, Hkv] from a quantized pool);
+      new_caches = the tail's K/V [L, B, S, Hkv, D], quantized like the
+      prefix.
     """
     if mode not in ("forward", "prefill", "decode"):
         raise ValueError(f"apply_stack mode {mode!r}")
@@ -89,12 +93,22 @@ def apply_stack(layers, x, cfg, *, positions, caches=None, index=None,
             outs.append(c)
     if not outs:
         return x, None
-    return x, {n: torch.stack([c[n] for c in outs]) for n in outs[0]}
+    return x, {n: torch.stack([quant.raw(c[n]) for c in outs]).view(
+        outs[0][n].dtype) for n in outs[0]}
 
 
 def stack_paged_cache_spec(cfg, num_blocks: int, block_size: int, dtype):
     """Pool leaves of the whole stack: {"k", "v"} -> (shape, dtype), shape
-    ``[layers, num_blocks, block_size, Hkv, D]``."""
+    ``[layers, num_blocks, block_size, Hkv, D]``.  A quantized pool
+    (``cfg.kv_dtype`` int8/fp8) stores the data leaves in the storage
+    dtype and adds f32 ``k_scale``/``v_scale`` leaves
+    ``[layers, num_blocks, block_size, Hkv]`` (one scale per position and
+    kv head), as the JAX ``paged_cache_spec``."""
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
              cfg.head_dim)
-    return {"k": (shape, dtype), "v": (shape, dtype)}
+    if cfg.kv_dtype == "fp16":
+        return {"k": (shape, dtype), "v": (shape, dtype)}
+    sd = quant.storage_dtype(cfg.kv_dtype)
+    return {"k": (shape, sd), "v": (shape, sd),
+            "k_scale": (shape[:-1], torch.float32),
+            "v_scale": (shape[:-1], torch.float32)}

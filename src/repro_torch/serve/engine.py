@@ -26,8 +26,10 @@ export/import of the JAX engine.  ``flush_every`` streams the tracer's
 records to ``flush_base`` segments mid-run, as in the JAX engine.
 
 Device state lives in torch tensors on ``device``: the pool leaves
-``{"k", "v"}`` [layers, NB, bs, Hkv, D] (updated IN PLACE by every
-dispatch — the JAX engine donates and replaces them), the per-slot token
+``{"k", "v"}`` [layers, NB, bs, Hkv, D] — with ``cfg.kv_dtype`` int8/fp8,
+codes in the storage dtype plus ``{"k_scale", "v_scale"}``
+[layers, NB, bs, Hkv] f32 — (updated IN PLACE by every dispatch — the
+JAX engine donates and replaces them), the per-slot token
 and position registers, the active mask and the block tables.  Work is
 enqueued on the current CUDA stream and fetched one dispatch later, so the
 host plans dispatch N+1 while the card runs dispatch N.
@@ -43,6 +45,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import events as ev
+from repro_torch.core import quant
 from repro_torch.core.sampling import sample_logits
 from repro_torch.kernels.attention import dispatch as kdispatch
 from repro_torch.models import cache_utils
@@ -57,8 +60,9 @@ EV_TOKENS_DECODED = 84_001  # user event: tokens decoded so far (one run)
 class ContinuousServeEngine:
     """Paged-pool engine base (see the module docstring for what is ported).
 
-    ``model`` is a :class:`DecoderLM` on ``device``; None builds a seeded
-    random one there.  ``device`` defaults to CUDA and raises when CUDA is
+    ``model`` is a :class:`DecoderLM` on ``device``, served under ``cfg``
+    (its ``kv_dtype`` and ``kernel_mode`` may differ from the model's
+    own); None builds a seeded random one there.  ``device`` defaults to CUDA and raises when CUDA is
     absent — CPU runs pass ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, model: DecoderLM | None = None, *,
@@ -69,17 +73,13 @@ class ContinuousServeEngine:
                  seed: int = 0, max_prefills_per_iter: int = 1,
                  max_decode_burst: int = 8, flush_every: int = 0,
                  flush_base=None):
-        if cfg.kv_dtype != "fp16":
-            raise NotImplementedError(
-                f"kv_dtype {cfg.kv_dtype!r}: quantized pools are not ported "
-                f"yet (native-dtype pools only)")
         self.cfg = cfg
         self.device = resolve_device(device)
         if model is None:
             model = build_model(cfg, device=self.device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
-        self.model = model
+        self.model = model.serving_view(cfg)
         self.num_slots = int(num_slots)
         self.block_size = bs = int(block_size)
         self.capacity = -(-int(max_len) // bs) * bs  # block-aligned
@@ -113,14 +113,15 @@ class ContinuousServeEngine:
             raise ValueError(
                 f"num_blocks {self.num_blocks} cannot hold one max-length "
                 f"request ({self.blocks_per_slot} blocks + null + headroom)")
-        specs = model.paged_cache_specs(self.num_slots, self.num_blocks, bs)
+        specs = self.model.paged_cache_specs(self.num_slots, self.num_blocks, bs)
         block_bytes = sum(
             int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
             // self.num_blocks for shape, dt in specs.values())
-        self.kv_bytes_per_token = block_bytes // bs
+        self.kv_bytes_per_token = block_bytes // bs  # scale leaves included
+        self.kv_storage = specs["k"][1]  # torch dtype of the K/V leaves
         self.pool = BlockPool(self.num_blocks, bs, tracer=tracer,
                               kv_dtype=cfg.kv_dtype, block_bytes=block_bytes)
-        self.prefix_cache = bool(prefix_cache) and model.fully_paged()
+        self.prefix_cache = bool(prefix_cache) and self.model.fully_paged()
 
         self.queue = RequestQueue()
         self.scheduler = Scheduler(self.num_slots, self.queue, tracer=tracer,
@@ -128,7 +129,7 @@ class ContinuousServeEngine:
                                    admission=self)
 
         # --- device state: the pool (updated in place) + slot registers ---
-        self._caches = {name: torch.zeros(shape, dtype=dt, device=self.device)
+        self._caches = {name: quant.zeros(shape, dt, self.device)
                         for name, (shape, dt) in specs.items()}
         self._tok = torch.zeros((self.num_slots,), dtype=torch.int32,
                                 device=self.device)
@@ -223,13 +224,16 @@ class ContinuousServeEngine:
         (``prefix_ids`` [k, m]) on the device into [layers, k, start, ...]
         per leaf, run only the prompt TAIL through the stack, and return
         the tail K/V padded to ``cache_len - start`` + first sampled
-        tokens."""
-        prefix = {name: leaf[:, prefix_ids].reshape(
-                      leaf.shape[0], prefix_ids.shape[0], start, *leaf.shape[3:])
+        tokens.  Every leaf moves (a quantized pool's codes and scales
+        alike; fp8 codes as bytes)."""
+        prefix = {name: quant.raw(leaf)[:, prefix_ids].reshape(
+                      leaf.shape[0], prefix_ids.shape[0], start,
+                      *leaf.shape[3:]).view(leaf.dtype)
                   for name, leaf in self._caches.items()}
         tail, last = self.model.prefill_chunk(tokens, prefix, start)
         pad = cache_len - start - tokens.shape[1]
-        tail = {name: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+        tail = {name: torch.nn.functional.pad(
+                    quant.raw(t), (0, 0) * (t.dim() - 3) + (0, pad)).view(t.dtype)
                 for name, t in tail.items()}
         tok = sample_logits(last, generator, self.temperature,
                             self.cfg.vocab_size, self.top_k, self.top_p)
@@ -243,9 +247,9 @@ class ContinuousServeEngine:
         nblk = block_ids.shape[1]
         ids = block_ids.reshape(-1)
         for name, leaf in self._caches.items():
-            nw = new[name]
+            nw = new[name].to(leaf.dtype)
             nw = nw.reshape(nw.shape[0], nw.shape[1] * nblk, bs, *nw.shape[3:])
-            leaf.index_copy_(1, ids, nw.to(leaf.dtype))
+            quant.raw(leaf).index_copy_(1, ids, quant.raw(nw))
         self._tok = self._tok.index_copy(0, slots, first_toks)
         self._idx = self._idx.index_copy(0, slots, start_idxs)
 
@@ -679,7 +683,7 @@ class ServeEngine:
             model = build_model(cfg, device=self.device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
-        self.model = model
+        self.model = model.serving_view(cfg)
         self.max_len = int(max_len)
         self.tracer = tracer
         self.host_syncs = 0

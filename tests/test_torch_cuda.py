@@ -1,5 +1,6 @@
-"""Torch port on the card: the CUDA paged and flash kernels against their
-plain torch versions, and the engines' kernel-vs-plain greedy invariant.
+"""Torch port on the card: the CUDA paged kernels (native and quantized
+int8/fp8 pools) and the flash kernel against their plain torch versions,
+and the engines' kernel-vs-plain greedy invariant.
 
 Every test here needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
 mode) and skips elsewhere.  The file imports neither jax nor ``repro``,
@@ -15,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core import quant  # noqa: E402
 from repro_torch.kernels.attention import flash, ops, paged  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine  # noqa: E402
@@ -75,6 +77,54 @@ def test_span_kernel_matches_plain(cuda_device, dtype, window):
     assert torch.isfinite(out).all()
 
 
+def _quantize_pool(kp, vp, kv_dtype):
+    """The case's pool as codes + scales, as the engine stores it."""
+    kc, ks = quant.kv_quantize(kp, kv_dtype)
+    vc, vs = quant.kv_quantize(vp, kv_dtype)
+    return kc, vc, {"k_scales": ks, "v_scales": vs}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 100])
+def test_quantized_decode_kernel_matches_plain(cuda_device, kv_dtype, dtype,
+                                               window):
+    """Kernel 1q: fused dequant against the plain dequant-gather path on
+    the same quantized pool (bf16: the plain path dequantizes to bf16)."""
+    q, kp, vp, bt, idx, _ = _case(cuda_device, dtype, b=4, q_len=1,
+                                  starts=[0, 17, 300, 543], lens=[1] * 4)
+    kc, vc, sc = _quantize_pool(kp, vp, kv_dtype)
+    ops.reset_counts()
+    out = ops.paged_attention({"k": kc, "v": vc, "k_scale": sc["k_scales"],
+                               "v_scale": sc["v_scales"]}, q, bt, idx,
+                              window=window)
+    ref = paged.paged_decode_plain(q, kc, vc, bt, idx, window=window, **sc)
+    assert ops.paged_attention.quant_launches == 1
+    assert ops.paged_attention.launches == 0
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 100])
+def test_quantized_span_kernel_matches_plain(cuda_device, kv_dtype, dtype,
+                                             window):
+    q, kp, vp, bt, st, ln = _case(cuda_device, dtype, b=3, q_len=32,
+                                  starts=[192, 421, 0], lens=[32, 17, 0])
+    kc, vc, sc = _quantize_pool(kp, vp, kv_dtype)
+    out = paged.paged_span_fwd(q, kc, vc, bt, st, ln, window=window, **sc)
+    ref = paged.paged_span_plain(q, kc, vc, bt, st, ln, window=window, **sc)
+    valid = (torch.arange(32, device=cuda_device)[None] < ln[:, None])
+    err = ((out.float() - ref.float()).abs() * valid[..., None, None]).max()
+    assert err.item() <= TOL[dtype]
+    assert (out[2] == 0).all()
+    assert torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="scales"):  # codes alone: refused
+        paged.paged_span_fwd(q, kc, vc, bt, st, ln)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [
@@ -132,15 +182,18 @@ def test_legacy_and_fixed_batch_kernel_equals_plain_greedy(cuda_device):
 
 
 @pytest.mark.cuda
-def test_engine_kernel_equals_plain_greedy(cuda_device):
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
+def test_engine_kernel_equals_plain_greedy(cuda_device, kv_dtype):
     """kernel_mode pallas (CUDA kernels) and xla (plain path) serve the
-    same greedy streams on reduced granite in float32."""
+    same greedy streams on reduced granite in float32, over a native and
+    an int8 pool."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 512, (n,)).astype(np.int32) for n in (7, 16, 21, 30)]
     streams = []
     for mode in ("pallas", "xla"):
-        cfg = reduced(get_config("granite-8b"), kernel_mode=mode)
+        cfg = reduced(get_config("granite-8b"), kernel_mode=mode,
+                      kv_dtype=kv_dtype)
         eng = UnifiedServeEngine(cfg, build_model(cfg, device=cuda_device),
                                  device=cuda_device, num_slots=2, max_len=48,
                                  chunk_size=8)
@@ -148,7 +201,10 @@ def test_engine_kernel_equals_plain_greedy(cuda_device):
         reqs = [eng.submit(p, 10) for p in prompts]
         out = eng.run()
         streams.append([out[r.rid] for r in reqs])
-        launched = ops.paged_attention.launches + ops.paged_span_attention.launches
-        assert (launched > 0) == (mode == "pallas")
+        count = "launches" if kv_dtype == "fp16" else "quant_launches"
+        launched = [getattr(w, count) for w in (ops.paged_attention,
+                                                ops.paged_span_attention)]
+        assert all(n > 0 for n in launched) == (mode == "pallas"), launched
+        assert sum(launched) == 0 or mode == "pallas"
     for a, b in zip(*streams):
         np.testing.assert_array_equal(a, b)

@@ -15,6 +15,7 @@ from repro.kernels.attention import (  # noqa: E402
     paged_attention, paged_attention_ref, paged_span_attention, paged_span_ref,
 )
 from repro.models import cache_utils as jax_cu  # noqa: E402
+from repro_torch.core import quant  # noqa: E402
 from repro_torch.kernels.attention import dispatch, ops, paged  # noqa: E402
 from repro_torch.models import cache_utils as cu  # noqa: E402
 
@@ -116,9 +117,18 @@ def test_cpu_wrappers_take_plain_path_and_launch_nothing():
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
     assert ops.paged_attention.launches == 0
     assert paged.paged_decode_plain.calls == 2
-    with pytest.raises(NotImplementedError, match="quantized"):
-        ops.paged_attention({"k": _t(kp), "v": _t(vp), "k_scale": _t(kp)},
-                            _t(q), _t(bt), _t(idx))
+    # a quantized pool on the CPU takes the plain path with its scales;
+    # codes without their scales are refused, never attended raw
+    kc, ks = quant.kv_quantize(_t(kp), "int8")
+    vc, vs = quant.kv_quantize(_t(vp), "int8")
+    out = ops.paged_attention({"k": kc, "v": vc, "k_scale": ks, "v_scale": vs},
+                              _t(q), _t(bt), _t(idx))
+    ref = paged.paged_decode_plain(_t(q), kc, vc, _t(bt), _t(idx),
+                                   k_scales=ks, v_scales=vs)
+    np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    assert ops.paged_attention.launches == ops.paged_attention.quant_launches == 0
+    with pytest.raises(ValueError, match="scales"):
+        ops.paged_attention({"k": kc, "v": vc}, _t(q), _t(bt), _t(idx))
     with pytest.raises(ValueError, match="CUDA tensors"):
         paged.paged_decode_fwd(_t(q), _t(kp), _t(vp), _t(bt), _t(idx))
 
@@ -200,6 +210,26 @@ def test_dispatch_decisions(mode, platform, dtype, hd, backend, reason):
         assert d.event_value == dispatch.KERNEL_VARIANT_IDS[d.tag]
     assert dispatch.KERNEL_VARIANT_IDS["paged_decode:cuda"] == 4
     assert dispatch.KERNEL_VARIANT_IDS["paged_span:cuda"] == 6
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_dispatch_takes_quantized_pools_on_paged_variants_only(kv_dtype):
+    """The paged kernels fuse the dequant; the dense kernel reads no pool
+    and refuses quantized K/V on CUDA instead of falling back."""
+    for variant in ("paged_decode", "paged_span"):
+        d = dispatch.resolve("auto", variant, head_dim=128, dtype="bfloat16",
+                             platform="cuda", kv_dtype=kv_dtype)
+        assert d.backend == "cuda"
+        assert d.event_value == dispatch.KERNEL_VARIANT_IDS[f"{variant}:cuda"]
+    with pytest.raises(NotImplementedError, match="no silent fallback"):
+        dispatch.resolve("auto", "dense", head_dim=128, dtype="bfloat16",
+                         platform="cuda", kv_dtype=kv_dtype)
+    cpu = dispatch.resolve("pallas", "dense", head_dim=32, dtype="float32",
+                           platform="cpu", kv_dtype=kv_dtype)
+    assert cpu.backend == "torch" and kv_dtype in cpu.reason
+    with pytest.raises(ValueError, match="kv_dtype"):
+        dispatch.resolve("auto", "paged_decode", head_dim=128,
+                         dtype="bfloat16", platform="cuda", kv_dtype="int4")
 
 
 def test_dispatch_never_falls_back_silently_on_cuda():

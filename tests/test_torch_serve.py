@@ -200,8 +200,26 @@ def test_cli_modes_and_trace_on_cpu(capsys, tmp_path, flags, expect):
         assert (tmp_path / "serve.pcf").exists()
 
 
+@pytest.mark.parametrize("mode", ["unified", "continuous"])
+@pytest.mark.parametrize("kv_dtype,storage", [("int8", "int8"),
+                                              ("fp8", "float8_e4m3fn")])
+def test_cli_serves_quantized_pool_on_cpu(capsys, mode, kv_dtype, storage):
+    """--kv-dtype int8|fp8 serves every request and the pool line names
+    the storage and its bytes per token (reduced granite: 2 layers x 1 kv
+    head x K and V x (32 one-byte codes + one f32 scale) = 144)."""
+    assert serve_cli.main(["--device", "cpu", "--requests", "3",
+                           "--prompt-len", "12", "--gen", "4", "--mode", mode,
+                           "--kv-dtype", kv_dtype]) == 0
+    out = capsys.readouterr().out
+    assert "12 tokens" in out, out
+    assert f"({kv_dtype} storage, {storage} K/V, 144 B/token)" in out, out
+    if not torch.cuda.is_available():  # the card is the default device
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve_cli.main(["--kv-dtype", kv_dtype, "--mode", mode])
+
+
 @pytest.mark.parametrize("flag", [["--beam", "2"], ["--mp", "2"],
-                                  ["--spec", "ngram"], ["--kv-dtype", "int8"],
+                                  ["--spec", "ngram"], ["--overlap", "on"],
                                   ["--replicas", "2"], ["--n", "2"],
                                   ["--flush-every", "2"]])
 def test_cli_rejects_paths_not_ported(flag):
