@@ -8,7 +8,7 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. the card: ``nvidia-smi`` name and power limit, torch version, compute
    capability (must be 9.x, Hopper);
 2. build the CUDA kernels from ``csrc/`` (paged attention, flash
-   attention), one nvcc per source, started together;
+   attention, the SSD scan), one nvcc per source, started together;
 3. each kernel against its plain torch version on the card at the main
    paths' shapes (granite-8b: 32 q / 8 kv heads, D = 128; block 16 for
    the paged kernels) in bf16 and f32 — sliding-window, NULL-tail and
@@ -24,7 +24,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    against their plain dequant-gather versions on the same pool (bf16
    and f32 q, window off and on), timed at the same shapes (int8; the
    SDPA yardstick runs over the pre-dequantized bf16 view, dequant
-   excluded);
+   excluded).  The SSD scan kernel (kernel 4) and its plain chunked
+   version each against the float64 sequential recurrence at
+   mamba2-370m's widths (H 32, P 64, N 128, G 1; S 200 / 300 / 512,
+   B 1 / 4, bf16 and f32), at an overflow-prone dt * a and at the JAX
+   test's grouped shapes (G 2, 4), held to ``ssd_scan.ref.check_ratio``
+   <= 1 (the check PERF.md states); then timed at the wave's longest
+   prompt (no single PyTorch call computes the scan: no library time);
 4. full-width granite-8b (36 layers, d_model 4096, bf16, random weights
    from a seed), one model object for both waves:
    a. through ``UnifiedServeEngine(device="cuda")``: 8 requests of
@@ -50,21 +56,33 @@ Phases (each prints its own lines; any failure exits non-zero):
       body and no plain path; the pool must hold 76,032 B/token (bf16:
       147,456); first tokens as in (a) at the per-dtype tolerance
       ``FIRST_TOKEN_TOL``; tok/s and the greedy token match against the
-      bf16 wave of the same engine; a profiled wave as in (a);
+      bf16 wave of the same engine;
+   f. full-width mamba2-370m (48 layers, d_model 1024, bf16, random
+      weights from a seed) on the same stream through
+      ``UnifiedServeEngine``, traced (segments flushed, merged into one
+      ``.prv`` and parsed back): whole-prompt admission, no pool; the SSD
+      kernel must have launched and the plain scan never run; every
+      ``EV_STEP_BUDGET`` sample equals ``EV_CHUNK_TOKENS +
+      EV_DECODE_TOKENS`` and the chunk tokens sum to the prompts; first
+      tokens within ``MAMBA2_FIRST_TOKEN_TOL`` of ``forward()``'s argmax
+      under ``kernel_mode="xla"``; tok/s, TTFT/TPOT, one profiled wave;
 5. reduced granite (float32, 2 layers, full attention and a sliding
    window) through ``ContinuousServeEngine``, ``UnifiedServeEngine`` and
    ``ServeEngine`` with ``kernel_mode="pallas"`` (the CUDA kernels) and
    ``"xla"`` (the plain path): all six greedy streams must be identical,
    and equal to a greedy full-recompute oracle from ``forward()``; then
    the legacy and unified engines over int8 and fp8 pools: pallas and
-   xla streams identical per engine and dtype;
-6. a ``{"kernels": [...]}`` line, the card line again, and last
+   xla streams identical per engine and dtype; and reduced mamba2 (f32,
+   2 layers) through ``UnifiedServeEngine``: pallas (the SSD kernel) and
+   xla streams identical and equal to the ``forward()`` oracle;
+6. a ``{"kernels": [...]}`` line (six kernels), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 It needs only the repository: weights and inputs are made from seeds.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -85,19 +103,25 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |kernel - plain| (see PERF.md)
 # attention paths.  int8/fp8: twice the JAX package's 2-layer bound on
 # max|dlogit| (0.05 / 0.30) scaled by sqrt(36 / 2) for 36 layers (PERF.md)
 FIRST_TOKEN_TOL = {"fp16": 0.1, "int8": 0.5, "fp8": 2.6}
+# mamba2's tied-embedding logits are N(0, 32^2): a bf16 ulp at the argmax
+# (~137) is 1.0; two roundings and the drift through 48 layers ~1.3
+# (PERF.md, PR 16 prediction)
+MAMBA2_FIRST_TOKEN_TOL = 8.0
 CSRC = "src/repro_torch/kernels/attention/csrc/"
 KERNELS = ("paged_decode", "paged_span", "paged_decode_quant",
-           "paged_span_quant", "flash_attention")
+           "paged_span_quant", "flash_attention", "ssd_scan")
 SOURCES = {"paged_decode": CSRC + "paged_attention.cu",
            "paged_span": CSRC + "paged_attention.cu",
            "paged_decode_quant": CSRC + "paged_attention.cu",
            "paged_span_quant": CSRC + "paged_attention.cu",
-           "flash_attention": CSRC + "flash_attention.cu"}
+           "flash_attention": CSRC + "flash_attention.cu",
+           "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"}
 REPLACES = {"paged_decode": "src/repro/kernels/attention/paged.py:102",
             "paged_span": "src/repro/kernels/attention/paged.py:225",
             "paged_decode_quant": "src/repro/kernels/attention/paged.py:43",
             "paged_span_quant": "src/repro/kernels/attention/paged.py:158",
-            "flash_attention": "src/repro/kernels/attention/flash.py:100"}
+            "flash_attention": "src/repro/kernels/attention/flash.py:100",
+            "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:76"}
 # full-width granite-8b pool bytes per token: 36 layers x 8 kv heads x K,V
 # x (128 x 2 B) in bf16; x (128 x 1 B codes + one 4 B scale) quantized
 POOL_BYTES_PER_TOKEN = {"fp16": 147_456, "int8": 76_032, "fp8": 76_032}
@@ -497,6 +521,98 @@ def flash_phase(torch, np):
     return results
 
 
+def ssd_bound_ms(dtype_name, x, dt, a_log, bm, cm, y, state, chunk):
+    """Least time for one SSD scan: x, dt, a_log, B, C read once, y and
+    the state written once, against the SSD algorithm's flops at the
+    config's chunk over the chunks these inputs have (C B^T once per
+    group, the decay-masked product and the two state products per
+    head)."""
+    b, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    io = sum(t.numel() * t.element_size()
+             for t in (x, dt, a_log, bm, cm, y, state))
+    flops = 0
+    for s0 in range(0, s, chunk):
+        ln = min(chunk, s - s0)
+        flops += b * (g * 2 * ln * ln * n
+                      + h * (2 * ln * ln * p + 2 * 2 * ln * n * p))
+    t_bytes = io / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_inputs(torch, dtype, b, s, h=32, p=64, n=128, g=1, *, seed=0,
+               dt_max=None):
+    """x/B/C normal in ``dtype``; dt and a_log as the model's inits draw
+    them (dt log-uniform in [1e-3, 0.1], A ~ U[1, 16]) or, with
+    ``dt_max``, dt ~ U[0, dt_max] (exp overflows above the diagonal)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(dtype)
+    u = torch.rand((b, s, h), generator=gen, device="cuda")
+    if dt_max is None:
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    else:
+        dt = u * dt_max
+    a_log = torch.log(1 + 15 * torch.rand((h,), generator=gen, device="cuda"))
+    return mk(b, s, h, p), dt, a_log, mk(b, s, g, n), mk(b, s, g, n)
+
+
+def ssd_phase(torch, np):
+    """Kernel 4: the SSD scan kernel and its plain chunked version each
+    held to the float64 recurrence, then timed at wave (f)'s longest
+    prompt (mamba2-370m, one 512-token prompt, bf16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ref, scan
+
+    chunk = get_config("mamba2-370m").ssm_chunk
+    cases = [(b, s, 32, 64, 128, 1, None) for s in (200, 300, 512)
+             for b in (1, 4)]
+    cases += [(1, 300, 32, 64, 128, 1, 3.0),  # dt * a down to -48 a token
+              (1, 100, 2, 32, 16, 2, None), (2, 64, 8, 16, 8, 4, None)]
+    worst = {}
+    for dt_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt_name)
+        for i, (b, s, h, p, n, g, dt_max) in enumerate(cases):
+            x, dt, a_log, bm, cm = ssd_inputs(torch, dtype, b, s, h, p, n, g,
+                                              seed=i, dt_max=dt_max)
+            y, state = scan.ssd_scan_fwd(x, dt, a_log, bm, cm)
+            py, pstate = scan.ssd_chunked_plain(x, dt, a_log, bm, cm, chunk)
+            ry, rstate = ref.ssd_sequential_ref(x, dt, a_log, bm, cm)
+            torch.cuda.synchronize()
+            rk = max(ref.check_ratio(y, ry), ref.check_ratio(state, rstate))
+            rp = max(ref.check_ratio(py, ry), ref.check_ratio(pstate, rstate))
+            diff = (y.float() - py.float()).abs().max().item()
+            worst[dt_name] = max(worst.get(dt_name, 0.0), rk)
+            what = (f"ssd_scan {dt_name} B={b} S={s} H={h} P={p} N={n} G={g}"
+                    + (f" dt<= {dt_max}" if dt_max else ""))
+            print(f"[smoke] {what}: check ratio kernel {rk:.3f}, plain "
+                  f"{rp:.3f} (<= 1 passes), max|kernel-plain| {diff:.3e}, "
+                  f"max|y| {ry.abs().max().item():.2f}")
+            require(torch.isfinite(y).all().item()
+                    and torch.isfinite(state).all().item(), f"{what}: non-finite")
+            require(rk <= 1.0, f"{what}: kernel outside the check ({rk})")
+            require(rp <= 1.0, f"{what}: plain outside the check ({rp})")
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    x, dt, a_log, bm, cm = ssd_inputs(torch, torch.bfloat16, 1, 512, seed=99)
+    y, state = scan.ssd_scan_fwd(x, dt, a_log, bm, cm)
+    py, _ = scan.ssd_chunked_plain(x, dt, a_log, bm, cm, chunk)
+    r = dict(max_abs_err=(y.float() - py.float()).abs().max().item(),
+             ms=time_ms(torch, lambda: scan.ssd_scan_fwd(x, dt, a_log, bm, cm),
+                        flush),
+             plain_ms=time_ms(torch, lambda: scan.ssd_chunked_plain(
+                 x, dt, a_log, bm, cm, chunk), flush),
+             library_ms=None)
+    r["bound_ms"], r["bound_by"] = ssd_bound_ms("bfloat16", x, dt, a_log, bm,
+                                                cm, y, state, chunk)
+    print(f"[smoke] ssd_scan bf16 wave shapes (B 1, S 512): kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, no library call, "
+          f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}); worst check ratio "
+          f"{worst}")
+    del flush_buf
+    return {"ssd_scan": r}
+
+
 # ----------------------------------------------------------------------
 # phases 4-5: the serve engines
 # ----------------------------------------------------------------------
@@ -688,7 +804,9 @@ def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
     """Waves (c)-(e): the phase-4 stream through the ``kind`` engine over a
     ``kv_dtype`` pool, same model object.  Counts zeroed just before the
     counted run and read just after; ``ref`` is the bf16 wave's greedy
-    streams of the same engine.  Returns the quantized launch counts."""
+    streams of the same engine.  Not profiled (a window costs ~60 s; chip
+    runs 2-4 of PR 14 recorded these waves' profiles).  Returns the
+    quantized launch counts."""
     from repro_torch.kernels.attention import flash, ops, paged
     from repro_torch.serve.engine import ContinuousServeEngine
     from repro_torch.serve.step import UnifiedServeEngine
@@ -743,10 +861,114 @@ def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
     check_first_tokens(torch, model, cfg, prompts,
                        [out[r.rid][0] for r in reqs], f"{what}, full width",
                        tol=FIRST_TOKEN_TOL[kv_dtype])
-    profile_window(torch, eng, [p[:256] for p in prompts[:4]], gen, what)
     del eng
     torch.cuda.empty_cache()
     return {k: launches[k] for k in ("paged_decode_quant", "paged_span_quant")}
+
+
+def mamba2_wave(torch, np):
+    """Wave (f): full-width mamba2-370m through the unified engine on the
+    phase-4 stream, traced and flushed into a merged ``.prv``; a profiled
+    wave first (also the warm-up).  Returns the SSD kernel's launches."""
+    from repro_torch import core as xtrace
+    from repro_torch.configs import get_config
+    from repro_torch.core import events as ev
+    from repro_torch.kernels.attention import flash, paged
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import scan as ssd_scan
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.step import UnifiedServeEngine
+
+    cfg = get_config("mamba2-370m")
+    gc.collect()  # the granite engines' reference cycles hold its weights
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in model.parameters())
+    print(f"[smoke] mamba2-370m full width: {model.param_count() / 1e9:.3f}B "
+          f"params {cfg.dtype} ({weights / 2**30:.2f} GiB), {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.ssm_heads} SSD heads x "
+          f"{cfg.ssm_headdim}, state {cfg.ssm_state}, init "
+          f"{time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    gen = 32
+    lens, prompts = shared_prefix_stream(np.random.default_rng(1), np,
+                                         cfg.vocab_size, 16)
+    kw = dict(device="cuda", num_slots=4, max_len=512 + gen)
+    eng = UnifiedServeEngine(cfg, model, **kw)
+    idle = profile_window(torch, eng, [p[:256] for p in prompts[:4]], gen,
+                          "mamba2")
+    del eng
+    with tempfile.TemporaryDirectory() as tmp:
+        base = pathlib.Path(tmp) / "serve"
+        tracer = xtrace.Tracer("chip-smoke-mamba2").init()
+        eng = UnifiedServeEngine(cfg, model, tracer=tracer, flush_every=16,
+                                 flush_base=base, **kw)
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in eng._caches.values()) // eng.num_slots
+        ssd_ops.reset_counts()
+        plain0 = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
+                  + flash.flash_attention_plain.calls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, gen) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ssd_ops.ssd_scan.launches
+        plain = ssd_scan.ssd_chunked_plain.calls
+        plain_attn = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
+                      + flash.flash_attention_plain.calls) - plain0
+        segments = list(tracer.segments)
+        paths = xtrace.write_prv(tracer.finish(), base, segments=segments)
+        trace = xtrace.parse_prv(paths["prv"])
+        lat = xtrace.serve_latency_summary(trace)
+    served(out, reqs, gen, cfg.vocab_size)
+    st = eng.stats
+    tokens = st["tokens_decoded"]
+    print(f"[smoke] mamba2 unified: served {len(reqs)} requests (prompts "
+          f"{lens}), {tokens} tokens in {seconds:.2f}s = "
+          f"{tokens / seconds:.1f} tok/s; {st['prefills']} whole-prompt "
+          f"prefills ({st['prefill_tokens']} tokens), {st['decode_dispatches']} "
+          f"decode dispatches, {st['host_syncs']} host syncs; no pool "
+          f"({eng.kv_bytes_per_token} B/token), slot state {state_bytes} bytes")
+    print(f"[smoke] mamba2 main-path kernel launches: ssd_scan {launches}; "
+          f"plain SSD calls {plain}; plain attention calls {plain_attn}")
+    require(eng.pool is None and eng.kv_bytes_per_token == 0,
+            "mamba2 engine holds a block pool")
+    require(launches > 0, "the SSD scan kernel never launched on wave (f)")
+    require(plain == 0 and plain_attn == 0,
+            f"plain path ran on wave (f): {plain} SSD, {plain_attn} attention")
+    evs = trace.events
+    by = {c: evs[evs["type"] == c]["value"].astype(np.int64) for c in (
+        ev.EV_STEP_BUDGET, ev.EV_CHUNK_TOKENS, ev.EV_DECODE_TOKENS)}
+    n_budget = len(by[ev.EV_STEP_BUDGET])
+    require(n_budget > 0 and all(len(v) == n_budget for v in by.values()),
+            f"counter triples incomplete: {[len(v) for v in by.values()]}")
+    require((by[ev.EV_STEP_BUDGET] == by[ev.EV_CHUNK_TOKENS]
+             + by[ev.EV_DECODE_TOKENS]).all(),
+            "EV_STEP_BUDGET != EV_CHUNK_TOKENS + EV_DECODE_TOKENS at a sample")
+    require(int(by[ev.EV_CHUNK_TOKENS].sum()) == sum(lens),
+            f"chunk tokens {int(by[ev.EV_CHUNK_TOKENS].sum())} != prompt "
+            f"tokens {sum(lens)}")
+    t, o = lat["ttft_us"], lat["tpot_us"]
+    print(f"[smoke] mamba2 trace: {len(segments)} flushed segments merged into "
+          f"one .prv ({trace.summary()}); {n_budget} counter triples, "
+          f"EV_STEP_BUDGET = EV_CHUNK_TOKENS + EV_DECODE_TOKENS at every "
+          f"sample, chunk tokens = the {sum(lens)} prompt tokens; TTFT p50 "
+          f"{t['p50']:.0f}us / p95 {t['p95']:.0f}us; TPOT p50 {o['p50']:.0f}us "
+          f"/ p95 {o['p95']:.0f}us over {t['count']} requests; device idle "
+          f"{idle if idle is None else f'{idle:.1%}'} (profiled wave)")
+    require(len(segments) > 0, "no trace segment was flushed")
+    require(t["count"] == len(reqs), f"trace holds {t['count']} latencies")
+    check_first_tokens(torch, model.serving_view(cfg.replace(kernel_mode="xla")),
+                       cfg, prompts, [out[r.rid][0] for r in reqs],
+                       "mamba2, full width (forward under kernel_mode xla)",
+                       tol=MAMBA2_FIRST_TOKEN_TOL)
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"ssd_scan": launches}
 
 
 def profile_window(torch, eng, prompts, gen, label):
@@ -769,12 +991,12 @@ def profile_window(torch, eng, prompts, gen, label):
     if not kern or busy_ms <= 0:
         print(f"[smoke] {label} profile: no device time recorded (not measured)")
         return None
-    fams = dict.fromkeys(("flash", "paged_decode", "paged_span", "gemm",
-                          "other"), 0.0)
+    fams = dict.fromkeys(("flash", "paged_decode", "paged_span", "ssd_scan",
+                          "gemm", "other"), 0.0)
     for e in kern:
         n = e.key.lower()
-        fam = next((f for f in ("flash", "paged_decode", "paged_span")
-                    if f in n), None) or (
+        fam = next((f for f in ("flash", "paged_decode", "paged_span",
+                                "ssd_scan") if f in n), None) or (
             "gemm" if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet"))
             else "other")
         fams[fam] += e.self_device_time_total / 1e3
@@ -856,6 +1078,49 @@ def reduced_phase(torch, np):
         for kv_dtype in ("int8", "fp8"):
             quant_streams_agree(torch, np, base.replace(kv_dtype=kv_dtype),
                                 prompts, gen)
+    mamba2_streams_agree(torch, np, gen)
+
+
+def mamba2_streams_agree(torch, np, gen):
+    """Reduced mamba2 in f32 through the unified engine: kernel_mode pallas
+    (the SSD kernel) and xla (the plain scan) serve the same greedy streams,
+    equal to the forward() full-recompute oracle."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import scan as ssd_scan
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.step import UnifiedServeEngine
+
+    base = reduced(get_config("mamba2-370m"))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, base.vocab_size, (n,)).astype(np.int32)
+               for n in (7, 16, 21, 30)]
+    model = build_model(base, device="cuda", seed=0)
+    streams = {}
+    for mode in ("pallas", "xla"):
+        eng = UnifiedServeEngine(base.replace(kernel_mode=mode), model,
+                                 device="cuda", num_slots=2, max_len=48)
+        ssd_ops.reset_counts()
+        reqs = [eng.submit(p, gen) for p in prompts]
+        out = eng.run()
+        streams[mode] = [out[r.rid] for r in reqs]
+        n_kernel = ssd_ops.ssd_scan.launches
+        n_plain = ssd_scan.ssd_chunked_plain.calls
+        require((n_kernel > 0 and n_plain == 0) if mode == "pallas"
+                else (n_kernel == 0 and n_plain > 0),
+                f"mamba2 {mode}: {n_kernel} kernel launches, {n_plain} plain calls")
+    with torch.inference_mode():
+        for p, a, b in zip(prompts, streams["pallas"], streams["xla"]):
+            ctx = torch.tensor(p, device="cuda")[None]
+            for _ in range(gen):
+                nxt = model(ctx)[0, -1, :base.vocab_size].argmax()
+                ctx = torch.cat([ctx, nxt.view(1, 1).to(ctx.dtype)], 1)
+            o = ctx[0, len(p):].cpu().numpy()
+            require(np.array_equal(a, b) and np.array_equal(a, o),
+                    f"mamba2: pallas {a} / xla {b} / oracle {o}")
+    print(f"[smoke] reduced mamba2 f32: unified greedy streams identical under "
+          f"kernel_mode pallas / xla and the forward() oracle ({len(prompts)} "
+          f"requests x {gen} tokens)")
 
 
 def quant_streams_agree(torch, np, base, prompts, gen):
@@ -911,6 +1176,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import flash, paged
+    from repro_torch.kernels.ssd_scan import scan as ssd_scan
 
     card = card_line()
     cap = torch.cuda.get_device_capability(0)
@@ -920,7 +1186,7 @@ def main() -> int:
     require(cap[0] == 9, f"compute capability {cap} is not Hopper (9.x)")
 
     t0 = time.perf_counter()
-    for built in build.load_all([paged.SOURCE, flash.SOURCE]):
+    for built in build.load_all([paged.SOURCE, flash.SOURCE, ssd_scan.SOURCE]):
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", built.log)]
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores",
                                              built.log) if int(b)]
@@ -941,7 +1207,9 @@ def main() -> int:
     timings = timed("paged kernels", kernel_phase)
     timings.update(timed("quantized paged kernels", quant_kernel_phase))
     timings.update(timed("flash kernel", flash_phase))
+    timings.update(timed("ssd scan kernel", ssd_phase))
     launches = timed("full width", full_width_phase)
+    launches.update(timed("mamba2 wave", mamba2_wave))
     timed("reduced", reduced_phase)
     print(f"[smoke] phase wall seconds: {phase_s}")
 

@@ -6,6 +6,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --mode continuous --trace --flush-every 4 --out runs/serve
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mamba2-370m --requests 4 --slots 2 --prompt-len 12 --gen 4
+
 Takes the flags and defaults of ``python -m repro.launch.serve`` for the
 single-engine paths and serves ``reduced(get_config(arch))`` with random
 weights from ``--seed`` through ``--mode unified``
@@ -20,7 +23,11 @@ TTFT/TPOT summary read from it.  ``--device`` picks the card (default)
 or, explicitly, the CPU.  ``--kv-dtype int8|fp8`` quantizes the paged
 pool of the unified and continuous modes (the pool line prints its
 storage and bytes per token); ``--mode static`` keeps contiguous caches
-in the model dtype, as the JAX CLI does.  Flags of paths not ported yet
+in the model dtype, as the JAX CLI does.  ``--arch`` takes the dense
+family and mamba2-370m (ssm), which serves in ``--mode unified`` only:
+whole-prompt admission through the SSD scan kernel, no pool and no
+prefix cache (the unified-step line says so and no pool line is
+printed).  Flags of paths not ported yet
 (meshes, replicas, speculative decoding, forks, beams, sessions, the
 two-deep overlap pipeline) stop with an error naming the flag.
 """
@@ -105,16 +112,19 @@ def main(argv=None):
     from repro_torch import core as xtrace
     from repro_torch.configs import all_arch_names, get_config, reduced
     from repro_torch.models.model import build_model
-    from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine
+    from repro_torch.serve.engine import (NEXT_SLICE, ContinuousServeEngine,
+                                          ServeEngine)
     from repro_torch.serve.step import UnifiedServeEngine
 
     if args.arch not in all_arch_names():
         p.error(f"unknown --arch {args.arch!r} (choose from "
                 f"{', '.join(all_arch_names())})")
     cfg = reduced(get_config(args.arch))
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         p.error(f"--arch {args.arch} is family {cfg.family!r}; repro_torch "
-                f"serves the dense family only")
+                f"serves the dense and ssm families only")
+    if cfg.family == "ssm" and args.mode != "unified":
+        p.error(f"--arch {args.arch} --mode {args.mode}: {NEXT_SLICE}")
     if args.kernel_mode:
         cfg = cfg.replace(kernel_mode=args.kernel_mode)
     if args.kv_dtype:
@@ -162,7 +172,7 @@ def main(argv=None):
     print(f"[serve] {args.arch} mode={args.mode} device={device}: "
           f"{stats['tokens']} tokens in {stats['seconds']:.2f}s = "
           f"{stats['tok_per_s']:.1f} tok/s (host syncs: {stats['host_syncs']})")
-    if args.mode != "static":
+    if args.mode != "static" and engine.pool is not None:
         storage = str(engine.kv_storage).removeprefix("torch.")
         print(f"[serve] paged pool: {engine.num_blocks - 1} blocks x "
               f"{engine.block_size} tokens ({engine.pool.kv_dtype} storage, "
@@ -175,8 +185,11 @@ def main(argv=None):
             stats["kernel_dispatch"].items())) or "none recorded"
         print(f"[serve] attention kernels (mode={cfg.kernel_mode}): {counts}")
     if args.mode == "unified":
+        note = ("on" if engine.chunkable
+                else "off — state-carrying family, whole-prompt admission")
         print(f"[serve] unified step: budget {engine.max_step_tokens} "
-              f"tokens/iteration, chunk {engine.chunk_size}")
+              f"tokens/iteration, chunk {engine.chunk_size} "
+              f"(chunked prefill {note})")
     if tracer:
         segments = list(tracer.segments)
         trace = xtrace.finish()

@@ -1,5 +1,5 @@
-"""Layer primitives on tensors: RMSNorm, dense, rotary embedding,
-embeddings, LM head and the SwiGLU MLP.
+"""Layer primitives on tensors: RMSNorm (plain and Mamba-2's gated),
+dense, rotary embedding, embeddings, LM head and the SwiGLU MLP.
 
 Plain functions over tensors, mirroring ``repro.models.layers``.  Dense
 weights keep the JAX package's ``[in, out...]`` layout, so a projection is
@@ -9,10 +9,27 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+
+class RMSNorm(nn.Module):
+    """A norm's scale as a module parameter (state-dict key ``.scale``)."""
+
+    def __init__(self, scale):
+        super().__init__()
+        self.scale = nn.Parameter(scale, requires_grad=False)
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def rmsnorm_gated(scale: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Mamba-2 gated RMSNorm: norm(x * silu(gate)) in float32."""
+    xf = x.float() * F.silu(gate.float())
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 

@@ -1,7 +1,8 @@
 """Model facade: ``build_model(cfg, device=...)`` -> :class:`DecoderLM`.
 
-The port's slice is the dense decoder (granite, yi, codeqwen,
-mistral-large); other families raise ``NotImplementedError``.  Weights are
+The port's slices are the dense decoder (granite, yi, codeqwen,
+mistral-large) and the ssm family (mamba2); other families raise
+``NotImplementedError``.  Weights are
 drawn from a seeded ``torch.Generator`` on the target device
 (:mod:`repro_torch.models.params`), or loaded from the JAX package's tree
 with ``model.load_state_dict(convert.params_from_jax(tree))``.
@@ -16,8 +17,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as params_mod
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.layers import embed_tokens, lm_logits, rmsnorm
-from repro_torch.models.transformer import RMSNorm
+from repro_torch.models.layers import RMSNorm, embed_tokens, lm_logits, rmsnorm
 
 
 def resolve_device(device) -> torch.device:
@@ -35,7 +35,7 @@ def resolve_device(device) -> torch.device:
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder-only LM: embedding, ``num_layers`` dense units,
+    """Decoder-only LM: embedding, ``num_layers`` dense or ssm units,
     final RMSNorm, LM head over the padded vocab."""
 
     def __init__(self, cfg: ModelConfig, *, device, seed: int = 0):
@@ -61,6 +61,13 @@ class DecoderLM(nn.Module):
         units = decls["stack"]["units"]
         layers = []
         for _ in range(cfg.num_layers):
+            if cfg.family == "ssm":
+                # one tensor per entry: a decl, a norm's scale, a dense's w
+                layers.append(tf_mod.SSMLayer(layer_slice({
+                    k: v if isinstance(v, params_mod.ParamDecl)
+                    else next(iter(v.values()))
+                    for k, v in units["mamba"].items()})))
+                continue
             a = units["attn"]
             attn = {f"w{n}": init(a[f"w{n}"]["w"], a[f"w{n}"]["w"].shape[1:])
                     for n in "qkvo"}
@@ -111,7 +118,8 @@ class DecoderLM(nn.Module):
 
     def forward(self, tokens):
         """tokens [B, S] -> float32 logits [B, S, V_padded]; causal
-        self-attention over the whole sequence, no cache."""
+        self-attention (or the ssm scan) over the whole sequence, no
+        cache."""
         x = embed_tokens(self.embedding, tokens, self.dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x, _ = tf_mod.apply_stack(self.layers, x, self.cfg, positions=positions)
@@ -122,7 +130,9 @@ class DecoderLM(nn.Module):
         logits [B, V_padded]).  ``max_len`` sets the cache capacity C
         (default S; a sliding window caps it, ring-arranged); ``ring=False``
         keeps full-length K/V under a window (paged prefill: the pool
-        stores absolute positions and masks the window)."""
+        stores absolute positions and masks the window).  An ssm stack
+        returns its decode state instead, {"ssm", "conv_x", "conv_b",
+        "conv_c"} [L, B, ...], and ignores both."""
         x = embed_tokens(self.embedding, tokens, self.dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x, caches = tf_mod.apply_stack(self.layers, x, self.cfg,
@@ -135,7 +145,8 @@ class DecoderLM(nn.Module):
         (positions ``start .. start+S-1``) run through the stack; ``prefix``
         holds the gathered K/V of positions [0, start), {"k", "v"}
         [L, B, start, Hkv, D].  -> (tail caches [L, B, S, Hkv, D], last
-        logits [B, V_padded])."""
+        logits [B, V_padded]).  Attention stacks only."""
+        self._attention_only("prefill_chunk")
         x = embed_tokens(self.embedding, tokens, self.dtype)
         positions = torch.arange(start, start + tokens.shape[1],
                                  device=tokens.device)
@@ -148,8 +159,10 @@ class DecoderLM(nn.Module):
         """One token per row: tokens [B]; index = the token's absolute
         position, [B] or (contiguous caches only) 0-d for a lockstep batch.
         With ``block_tables`` [B, W] int32 ``caches`` is the paged pool,
-        else the contiguous caches {"k", "v"} [L, B, C, Hkv, D].  Writes
-        each token's K/V in place; returns logits [B, V_padded]."""
+        else the contiguous caches {"k", "v"} [L, B, C, Hkv, D]; an ssm
+        stack takes its slot-indexed state [L, B, ...] and no tables.
+        Writes each token's K/V (advances the state) in place; returns
+        logits [B, V_padded]."""
         x = embed_tokens(self.embedding, tokens[:, None], self.dtype)
         positions = index[:, None] if index.dim() else index.reshape(1)
         x, _ = tf_mod.apply_stack(self.layers, x, self.cfg, positions=positions,
@@ -161,7 +174,9 @@ class DecoderLM(nn.Module):
         """Per-row query spans through the pool: tokens [B, Q]; row ``b``
         holds ``row_len[b]`` valid tokens at ``row_start[b] + j`` (padding
         columns scatter into the NULL block and give garbage logits).
-        Writes the spans' K/V in place; returns logits [B, Q, V_padded]."""
+        Writes the spans' K/V in place; returns logits [B, Q, V_padded].
+        Attention stacks only (a recurrent state cannot resume a chunk)."""
+        self._attention_only("span_step")
         x = embed_tokens(self.embedding, tokens, self.dtype)
         positions = row_start[:, None] + torch.arange(
             tokens.shape[1], dtype=row_start.dtype, device=tokens.device)[None]
@@ -171,18 +186,31 @@ class DecoderLM(nn.Module):
                                   mode="decode")
         return self._logits(x)
 
+    def _attention_only(self, what: str):
+        if self.cfg.family == "ssm":
+            raise ValueError(f"{what} needs an attention-only stack; "
+                             f"{self.cfg.name!r} carries ssm state")
+
     # ------------------------------------------------------------------
     def paged_cache_specs(self, num_slots: int, num_blocks: int, block_size: int):
-        """{"k", "v"} -> (shape [L, NB, bs, Hkv, D], dtype), plus
-        {"k_scale", "v_scale"} [L, NB, bs, Hkv] f32 for a quantized pool:
-        every cache leaf of the dense stack is pooled (``num_slots`` holds
-        no state)."""
+        """The engine's cache leaves: name -> (shape, dtype).  Dense:
+        {"k", "v"} [L, NB, bs, Hkv, D], plus {"k_scale", "v_scale"}
+        [L, NB, bs, Hkv] f32 for a quantized pool, every leaf pooled.
+        ssm: the decode state [L, num_slots, ...], slot-indexed, none
+        pooled."""
+        if self.cfg.family == "ssm":
+            return tf_mod.stack_state_spec(self.cfg, num_slots, self.dtype)
         return tf_mod.stack_paged_cache_spec(self.cfg, num_blocks, block_size,
                                              self.dtype)
 
+    def paged_leaf_mask(self) -> dict[str, bool]:
+        """name -> True where the cache leaf is block-pooled."""
+        pooled = self.cfg.family != "ssm"
+        return {n: pooled for n in self.paged_cache_specs(1, 1, 1)}
+
     def fully_paged(self) -> bool:
         """Every cache leaf is pooled: the precondition for prefix reuse."""
-        return True
+        return all(self.paged_leaf_mask().values())
 
 
 def build_model(cfg: ModelConfig, *, device="cuda", seed: int = 0) -> DecoderLM:

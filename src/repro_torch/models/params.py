@@ -1,4 +1,5 @@
-"""Parameter declarations and seeded initialisation for the dense decoder.
+"""Parameter declarations and seeded initialisation for the dense and
+ssm (Mamba-2) decoders.
 
 The JAX package declares every parameter once as a ``ParamDecl`` (shape +
 initializer) and initialises the whole layers-stacked tree from one PRNG
@@ -33,7 +34,7 @@ class ParamDecl:
     """Declaration of one parameter: its (stacked) shape and initializer."""
 
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones | embed
+    init: str = "normal"  # normal | zeros | ones | embed | conv | ssm_*
     scale: float | None = None  # stddev override for "normal"
     dtype: torch.dtype | None = None  # None -> model default dtype
 
@@ -57,22 +58,59 @@ def _stack(tree, n: int):
     return {k: _stack(v, n) for k, v in tree.items()}
 
 
+FAMILIES = ("dense", "ssm")  # the ported layer families
+
+
 def check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"repro_torch ports the dense decoder only (the unified paged "
-            f"serve slice); {cfg.name!r} is family {cfg.family!r}")
+            f"repro_torch ports the dense and ssm families only; "
+            f"{cfg.name!r} is family {cfg.family!r}")
+
+
+def _mamba2(cfg) -> dict:
+    """One Mamba-2 unit (``repro.models.ssm.mamba2_decl``)."""
+    d, di, h = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_heads
+    gn, w = cfg.ssm_groups * cfg.ssm_state, cfg.conv_width
+    f32 = torch.float32
+    return {
+        "norm": {"scale": ParamDecl((d,), "ones", dtype=f32)},
+        "wz": _dense(d, (di,)), "wx": _dense(d, (di,)),
+        "wb": _dense(d, (gn,)), "wc": _dense(d, (gn,)),
+        "wdt": _dense(d, (h,)),
+        "conv_x": ParamDecl((w, di), "conv"),
+        "conv_x_b": ParamDecl((di,), "zeros", dtype=f32),
+        "conv_b": ParamDecl((w, gn), "conv"),
+        "conv_b_b": ParamDecl((gn,), "zeros", dtype=f32),
+        "conv_c": ParamDecl((w, gn), "conv"),
+        "conv_c_b": ParamDecl((gn,), "zeros", dtype=f32),
+        "A_log": ParamDecl((h,), "ssm_a_log", dtype=f32),
+        "D": ParamDecl((h,), "ones", dtype=f32),
+        "dt_bias": ParamDecl((h,), "ssm_dt_bias", dtype=f32),
+        "out_norm": {"scale": ParamDecl((di,), "ones", dtype=f32)},
+        "out_proj": _dense(di, (d,)),
+    }
 
 
 def decl_tree(cfg) -> dict:
-    """The JAX ``DecoderLM.decl()`` tree for a dense config, layers-stacked:
-    ``{"embed", "stack": {"units": ...}, "final_norm"}``."""
+    """The JAX ``DecoderLM.decl()`` tree for a dense or ssm config,
+    layers-stacked: ``{"embed", "stack": {"units": ...}, "final_norm"}``
+    (an ssm unit is ``{"mamba": ...}``, ``transformer.layer_decl``)."""
     check_family(cfg)
-    d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
+    d = cfg.d_model
     v = padded_vocab(cfg.vocab_size)
     norm = {"scale": ParamDecl((d,), "ones", dtype=torch.float32)}
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
+    embed = {"embedding": ParamDecl((v, d), "embed")}
+    if not cfg.tie_embeddings:
+        embed["lm_head"] = ParamDecl((d, v))
+    if cfg.family == "ssm":
+        return {"embed": embed,
+                "stack": {"units": _stack({"mamba": _mamba2(cfg)},
+                                          cfg.num_layers)},
+                "final_norm": dict(norm)}
+    hd, ff = cfg.head_dim, cfg.d_ff
     mlp = {"w_up": _dense(d, (ff,))}
     if cfg.gated_mlp:
         mlp["w_gate"] = _dense(d, (ff,))
@@ -87,9 +125,6 @@ def decl_tree(cfg) -> dict:
         },
         "mlp": mlp,
     }
-    embed = {"embedding": ParamDecl((v, d), "embed")}
-    if not cfg.tie_embeddings:
-        embed["lm_head"] = ParamDecl((d, v))
     return {"embed": embed, "stack": {"units": _stack(layer, cfg.num_layers)},
             "final_norm": dict(norm)}
 
@@ -119,6 +154,21 @@ def init_leaf(d: ParamDecl, shape, default_dtype, generator, device):
         std = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     elif d.init == "embed":
         std = d.scale if d.scale is not None else 1.0
+    elif d.init == "conv":
+        bound = 1.0 / math.sqrt(max(d.shape[-1], 1))
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+        return out.uniform_(-bound, bound, generator=generator).to(dtype)
+    elif d.init == "ssm_a_log":
+        # Mamba-2: A ~ U[1, 16], stored as log(A); dA = -exp(A_log) * dt
+        a = torch.empty(shape, dtype=torch.float32, device=device)
+        return a.uniform_(1.0, 16.0, generator=generator).log().to(dtype)
+    elif d.init == "ssm_dt_bias":
+        # dt = softplus(raw + bias) in ~[1e-3, 0.1] at init
+        u = torch.empty(shape, dtype=torch.float32, device=device)
+        u.uniform_(0.0, 1.0, generator=generator)
+        lo, hi = math.log(1e-3), math.log(0.1)
+        dt = torch.exp(u * (hi - lo) + lo)
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
     else:
         raise NotImplementedError(f"init {d.init!r} is not ported")
     out = torch.empty(shape, dtype=dtype, device=device)

@@ -1,11 +1,14 @@
-"""Decoder stack for the ``dense`` layer kind: pre-norm attention + SwiGLU
-MLP, residual adds — ``repro.models.transformer`` with the ``lax.scan``
-over stacked layers written as a Python loop over ``nn.Module`` layers.
+"""Decoder stack for the ``dense`` layer kind (pre-norm attention + SwiGLU
+MLP, residual adds) and the ``ssm`` kind (a Mamba-2 unit,
+:mod:`repro_torch.models.ssm`) — ``repro.models.transformer`` with the
+``lax.scan`` over stacked layers written as a Python loop over
+``nn.Module`` layers.
 
 One loop serves every mode: forward (no cache, the full-recompute
-oracle), prefill (returns each layer's fresh K/V), tail prefill after a
-prefix hit (returns the tail's K/V), contiguous decode and paged
-decode/span (caches updated in place).
+oracle), prefill (returns each layer's fresh K/V, or its ssm decode
+state), tail prefill after a prefix hit (returns the tail's K/V),
+contiguous decode and paged decode/span (caches updated in place; an ssm
+layer's slot-indexed state likewise).
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ from torch import nn
 
 from repro_torch.core import quant
 from repro_torch.models.attention import Attention, attention_block
-from repro_torch.models.layers import apply_mlp, rmsnorm
+from repro_torch.models import ssm
+from repro_torch.models.layers import RMSNorm, apply_mlp, rmsnorm
 
 
 class MLP(nn.Module):
@@ -28,12 +32,6 @@ class MLP(nn.Module):
                 self.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
 
-class RMSNorm(nn.Module):
-    def __init__(self, scale):
-        super().__init__()
-        self.scale = nn.Parameter(scale, requires_grad=False)
-
-
 class DenseLayer(nn.Module):
     """One ``dense`` unit: ln1 -> attention -> residual, ln2 -> MLP ->
     residual."""
@@ -44,6 +42,14 @@ class DenseLayer(nn.Module):
         self.attn = Attention(attn)
         self.ln2 = RMSNorm(ln2)
         self.mlp = MLP(mlp)
+
+
+class SSMLayer(nn.Module):
+    """One ``ssm`` unit: ``{"mamba": ...}`` as the JAX ``layer_decl``."""
+
+    def __init__(self, mamba: dict):
+        super().__init__()
+        self.mamba = ssm.Mamba2(mamba)
 
 
 def apply_layer(layer: DenseLayer, x, cfg, *, positions, cache=None,
@@ -79,12 +85,24 @@ def apply_stack(layers, x, cfg, *, positions, caches=None, index=None,
       [L, B, P, Hkv, D] (+ scales [L, B, P, Hkv] from a quantized pool);
       new_caches = the tail's K/V [L, B, S, Hkv, D], quantized like the
       prefix.
+
+    An ssm stack ignores positions, index and tables: prefill returns its
+    decode state {"ssm", "conv_x", "conv_b", "conv_c"} [L, B, ...], decode
+    advances the slot-indexed state ``caches`` [L, B, ...] in place.
     """
     if mode not in ("forward", "prefill", "decode"):
         raise ValueError(f"apply_stack mode {mode!r}")
     outs = []
     for i, layer in enumerate(layers):
         lc = None if caches is None else {n: t[i] for n, t in caches.items()}
+        if isinstance(layer, SSMLayer):
+            x, c = ssm.apply_layer(layer.mamba, x, cfg, state=lc)
+            if lc is not None:  # decode: the new state replaces the old
+                for n, t in c.items():
+                    lc[n].copy_(t)
+            elif mode == "prefill":
+                outs.append(c)
+            continue
         x, c = apply_layer(layer, x, cfg, positions=positions, cache=lc,
                            index=index, block_tables=block_tables,
                            row_len=row_len, build_cache=mode == "prefill",
@@ -112,3 +130,10 @@ def stack_paged_cache_spec(cfg, num_blocks: int, block_size: int, dtype):
     return {"k": (shape, sd), "v": (shape, sd),
             "k_scale": (shape[:-1], torch.float32),
             "v_scale": (shape[:-1], torch.float32)}
+
+
+def stack_state_spec(cfg, num_slots: int, dtype):
+    """Slot-indexed decode state of an ssm stack: name -> (shape, dtype),
+    shape ``[layers, num_slots, ...]``."""
+    return {n: ((cfg.num_layers,) + shape, dt) for n, (shape, dt)
+            in ssm.mamba2_state_spec(cfg, num_slots, dtype).items()}

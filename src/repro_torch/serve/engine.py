@@ -20,6 +20,12 @@ blocks (``_admit_impl``), then every slot decodes in bursts of up to
 per-request contiguous (ring under a sliding window) caches — the
 contiguous equivalence oracle of the paged engines.
 
+A state-carrying family (ssm: mamba2) has no pooled leaf: the engine then
+holds no block pool (``pool`` None, ``kv_bytes_per_token`` 0, no prefix
+cache, no admission policy) and its slot-indexed decode state is written
+at the admitted slots.  Only the unified engine serves it; this engine's
+:meth:`ContinuousServeEngine.run` and :class:`ServeEngine` refuse it.
+
 Not ported (raise or are absent): the mesh and its trace replay, the
 two-deep ``overlap`` pipeline, sessions, CoW fan-out and the prefix
 export/import of the JAX engine.  ``flush_every`` streams the tracer's
@@ -28,7 +34,8 @@ records to ``flush_base`` segments mid-run, as in the JAX engine.
 Device state lives in torch tensors on ``device``: the pool leaves
 ``{"k", "v"}`` [layers, NB, bs, Hkv, D] — with ``cfg.kv_dtype`` int8/fp8,
 codes in the storage dtype plus ``{"k_scale", "v_scale"}``
-[layers, NB, bs, Hkv] f32 — (updated IN PLACE by every dispatch — the
+[layers, NB, bs, Hkv] f32 — or an ssm stack's slot-indexed state
+[layers, num_slots, ...] (updated IN PLACE by every dispatch — the
 JAX engine donates and replaces them), the per-slot token
 and position registers, the active mask and the block tables.  Work is
 enqueued on the current CUDA stream and fetched one dispatch later, so the
@@ -55,6 +62,9 @@ from repro_torch.serve.queue import Request, RequestQueue, _now_ns
 from repro_torch.serve.scheduler import Scheduler
 
 EV_TOKENS_DECODED = 84_001  # user event: tokens decoded so far (one run)
+NEXT_SLICE = ("the ssm family is served by the unified engine only; the "
+              "grouped-prefill and fixed-batch engines take it in the next "
+              "slice of the port")
 
 
 class ContinuousServeEngine:
@@ -103,30 +113,37 @@ class ContinuousServeEngine:
             for code, label in ev.KERNEL_EVENT_LABELS.items():
                 tracer.register(code, label)
 
+        # attention K/V is block-addressed; ssm state stays slot-indexed
+        self._paged_mask = self.model.paged_leaf_mask()
+        self._has_paged = any(self._paged_mask.values())
         if num_blocks is None:
             # one full-capacity region per slot + the reserved NULL block;
             # the floor keeps one max-length request admissible
             num_blocks = max(self.num_slots * self.blocks_per_slot + 1,
                              self.blocks_per_slot + 2)
         self.num_blocks = int(num_blocks)
-        if self.num_blocks < self.blocks_per_slot + 2:
+        if self._has_paged and self.num_blocks < self.blocks_per_slot + 2:
             raise ValueError(
                 f"num_blocks {self.num_blocks} cannot hold one max-length "
                 f"request ({self.blocks_per_slot} blocks + null + headroom)")
         specs = self.model.paged_cache_specs(self.num_slots, self.num_blocks, bs)
         block_bytes = sum(
             int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
-            // self.num_blocks for shape, dt in specs.values())
+            // self.num_blocks for name, (shape, dt) in specs.items()
+            if self._paged_mask[name])
         self.kv_bytes_per_token = block_bytes // bs  # scale leaves included
-        self.kv_storage = specs["k"][1]  # torch dtype of the K/V leaves
-        self.pool = BlockPool(self.num_blocks, bs, tracer=tracer,
-                              kv_dtype=cfg.kv_dtype, block_bytes=block_bytes)
+        # torch dtype of the K/V leaves
+        self.kv_storage = specs["k"][1] if self._has_paged else None
+        self.pool = (BlockPool(self.num_blocks, bs, tracer=tracer,
+                               kv_dtype=cfg.kv_dtype, block_bytes=block_bytes)
+                     if self._has_paged else None)
         self.prefix_cache = bool(prefix_cache) and self.model.fully_paged()
 
         self.queue = RequestQueue()
-        self.scheduler = Scheduler(self.num_slots, self.queue, tracer=tracer,
-                                   max_prefills_per_iter=max_prefills_per_iter,
-                                   admission=self)
+        self.scheduler = Scheduler(
+            self.num_slots, self.queue, tracer=tracer,
+            max_prefills_per_iter=max_prefills_per_iter,
+            admission=self if self.pool is not None else None)
 
         # --- device state: the pool (updated in place) + slot registers ---
         self._caches = {name: quant.zeros(shape, dt, self.device)
@@ -163,8 +180,8 @@ class ContinuousServeEngine:
                       "peak_shared": 0, "host_syncs": 0, "decode_syncs": 0,
                       "decode_dispatches": 0, "seconds": 0.0,
                       "prefill_seconds": 0.0, "kernel_dispatch": {}}
-        self._kernel_plan = kdispatch.engine_plan(cfg,
-                                                  platform=self.device.type)
+        self._kernel_plan = (kdispatch.engine_plan(cfg, platform=self.device.type)
+                             if self._has_paged else {})
 
     # ------------------------------------------------------------------
     def _dev(self, x) -> torch.Tensor:
@@ -189,7 +206,10 @@ class ContinuousServeEngine:
         return g
 
     def _note_kernel(self, variant: str):
-        """Account one engine dispatch of an attention-kernel variant."""
+        """Account one engine dispatch of an attention-kernel variant (none
+        without attention layers)."""
+        if not self._has_paged:
+            return
         d = self._kernel_plan[variant]
         counts = self.stats["kernel_dispatch"]
         counts[d.tag] = counts.get(d.tag, 0) + 1
@@ -240,14 +260,18 @@ class ContinuousServeEngine:
         return tail, tok
 
     def _admit_impl(self, new, slots, block_ids, first_toks, start_idxs):
-        """Scatter a prefilled group's caches into its pool blocks (in
-        place; ``block_ids`` [k, nblk]) and seed the slots' token/position
-        registers.  ``new`` leaves are [layers, k, nblk * bs, ...]."""
+        """Scatter a prefilled group's caches into the pool (in place) and
+        seed the slots' token/position registers.  Paged leaves land in
+        their blocks (``block_ids`` [k, nblk]; ``new`` leaves [layers, k,
+        nblk * bs, ...]); slot-indexed leaves land at ``slots``."""
         bs = self.block_size
         nblk = block_ids.shape[1]
         ids = block_ids.reshape(-1)
         for name, leaf in self._caches.items():
             nw = new[name].to(leaf.dtype)
+            if not self._paged_mask[name]:
+                leaf.index_copy_(1, slots, nw)
+                continue
             nw = nw.reshape(nw.shape[0], nw.shape[1] * nblk, bs, *nw.shape[3:])
             quant.raw(leaf).index_copy_(1, ids, quant.raw(nw))
         self._tok = self._tok.index_copy(0, slots, first_toks)
@@ -258,7 +282,8 @@ class ContinuousServeEngine:
         (:meth:`_decode_scan`); frozen slots' stale writes land in blocks
         they still own, or the NULL block once retired.  Returns the new
         registers and the [steps, num_slots] token block for one fetch."""
-        return self._decode_scan(tok, idx, active, tables, generator, steps)
+        bt = tables if self._has_paged else None
+        return self._decode_scan(tok, idx, active, bt, generator, steps)
 
     def _decode_scan(self, tok, idx, active, bt, generator, steps):
         """``steps`` decode iterations: batched paged decode (``bt`` block
@@ -283,8 +308,9 @@ class ContinuousServeEngine:
         src = self._dev([p[0] for p in self._cow_pairs])
         dst = self._dev([p[1] for p in self._cow_pairs])
         self._cow_pairs = []
-        for leaf in self._caches.values():
-            cache_utils.copy_pool_blocks(leaf, src, dst)
+        for name, leaf in self._caches.items():
+            if self._paged_mask[name]:
+                cache_utils.copy_pool_blocks(leaf, src, dst)
 
     # ------------------------------------------------------------------
     # admission policy (Scheduler callback): blocks, not slots, gate entry
@@ -346,6 +372,8 @@ class ContinuousServeEngine:
         return hits, hashes
 
     def _release_blocks(self, slot: int):
+        if self.pool is None:
+            return
         self.pool.free(self._slot_blocks[slot])
         self._slot_blocks[slot] = []
         self._tables[slot] = NULL_BLOCK
@@ -374,10 +402,11 @@ class ContinuousServeEngine:
             raise NotImplementedError("request extras belong to vlm/encdec "
                                       "families, which are not ported")
         # paged storage holds ABSOLUTE positions: the capacity bound
-        # applies to SWA archs too (the window is a mask)
+        # applies to SWA archs too (the window is a mask); an ssm state
+        # has no length
         plen = int(np.asarray(prompt).shape[0])
         need = plen + int(max_new_tokens) - 1
-        if need > self.capacity:
+        if self._has_paged and need > self.capacity:
             raise ValueError(
                 f"prompt {plen} + {max_new_tokens} new tokens needs cache "
                 f"capacity {need} > {self.capacity}")
@@ -425,6 +454,8 @@ class ContinuousServeEngine:
             while steps < need:
                 steps *= 2
             steps = min(steps, cap)
+            if self.pool is None:
+                return pairs, steps
             steps = min(steps, min(
                 self.capacity + 1 - int(self._slot_start[s])
                 - (r.scheduled - int(self._slot_sched0[s]))
@@ -520,8 +551,8 @@ class ContinuousServeEngine:
         inputs = [r.input_ids() for r in reqs]
         starts = [self._start_index(r) for r in reqs]
         bs = self.block_size
-        cache_len = -(-starts[0] // bs) * bs
-        w0 = cache_len // bs
+        cache_len = -(-starts[0] // bs) * bs if self._has_paged else starts[0]
+        w0 = cache_len // bs if self._has_paged else 0
         hit = reqs[0].prefix_hit_tokens  # same within a group (signature)
         gen = self._generator(salt=(1 << 20) + reqs[0].rid)
         t_admit = _now_ns()
@@ -588,6 +619,8 @@ class ContinuousServeEngine:
         fetch overlaps device work and retirement lags the device by one
         burst.  A preemption flushes the pipeline first: a victim's
         in-flight tokens must drain before it is requeued."""
+        if self.cfg.family == "ssm":
+            raise NotImplementedError(NEXT_SLICE)
         tr = self.tracer
         done0 = len(self.scheduler.completed)
         inflight: collections.deque = collections.deque()  # unfetched bursts
@@ -657,10 +690,11 @@ class ContinuousServeEngine:
                "tok_per_s": total / dt if dt > 0 else float("nan")}
         out["host_syncs_per_decode_iter"] = (
             self.stats["decode_syncs"] / max(self.stats["iterations"], 1))
-        out.update(blocks_free=self.pool.num_free(),
-                   blocks_cached=self.pool.num_cached(),
-                   evictions=self.pool.stats["evictions"],
-                   hit_blocks=self.pool.stats["hit_blocks"])
+        if self.pool is not None:
+            out.update(blocks_free=self.pool.num_free(),
+                       blocks_cached=self.pool.num_cached(),
+                       evictions=self.pool.stats["evictions"],
+                       hit_blocks=self.pool.stats["hit_blocks"])
         return out
 
 
@@ -677,6 +711,8 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, model: DecoderLM | None = None, *,
                  device="cuda", max_len: int, tracer=None):
+        if cfg.family == "ssm":
+            raise NotImplementedError(NEXT_SLICE)
         self.cfg = cfg
         self.device = resolve_device(device)
         if model is None:

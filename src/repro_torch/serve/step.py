@@ -13,6 +13,13 @@ engine.  Each scheduler iteration runs ONE dispatch under a token budget
     sampling ONLY rows that complete their prompt and folding that first
     token and its decode position into the slot registers on device.
 
+A state-carrying family (ssm: mamba2; :attr:`chunkable` False) cannot
+resume a prompt mid-way: it is admitted whole, through the inherited
+grouped-prefill path (``_prefill_groups`` / ``_do_prefill``, the SSD scan
+kernel in every layer), with no pool, prefix cache or chunk rows; its
+prompt tokens are folded into the next dispatch's counter triple, and its
+decode dispatches run without block tables.
+
 Block allocation is just-in-time per chunk: admission demands blocks for
 the request's FIRST chunk only (+1 decode headroom), later chunks allocate
 as they stream, and a dry pool preempts decode slots newest-first.
@@ -88,9 +95,15 @@ class UnifiedServeEngine(ContinuousServeEngine):
             raise ValueError(
                 f"max_step_tokens {self.max_step_tokens} < num_slots "
                 f"{self.num_slots}: decode alone would overrun the budget")
+        # chunked prefill needs every cache leaf pooled: a recurrent state
+        # cannot resume a prompt mid-way
+        self.chunkable = self.model.fully_paged()
         self._progress = np.zeros((self.num_slots,), np.int64)
         self._target = np.zeros((self.num_slots,), np.int64)
         self._prefilling = np.zeros((self.num_slots,), bool)
+        # whole-prompt tokens prefilled since the last dispatch (not
+        # chunkable), folded into the next dispatch's counter triple
+        self._whole_tokens = 0
         if self.tracer is not None:
             for code in (ev.EV_STEP_BUDGET, ev.EV_CHUNK_TOKENS,
                          ev.EV_DECODE_TOKENS):
@@ -111,7 +124,8 @@ class UnifiedServeEngine(ContinuousServeEngine):
         position go straight into the slot registers.
         Returns (tok, idx, toks [steps, S], ck_tok [C] or None)."""
         gen = self._generator()
-        bt = tables.masked_fill(~active[:, None], NULL_BLOCK)
+        bt = (tables.masked_fill(~active[:, None], NULL_BLOCK)
+              if self._has_paged else None)
         if steps:
             tok, idx, toks = self._decode_scan(tok, idx, active, bt, gen, steps)
         else:
@@ -218,6 +232,8 @@ class UnifiedServeEngine(ContinuousServeEngine):
         """This iteration's prefill chunks — resumes first (oldest
         admission first), then FIFO admissions — up to ``chunk_rows``
         streams sharing the budget left after decode."""
+        if not self.chunkable:
+            return []
         budget = self.max_step_tokens - len(pairs)
         plans: list[ChunkPlan] = []
         live = sorted((s for s in range(self.num_slots) if self._prefilling[s]),
@@ -295,6 +311,10 @@ class UnifiedServeEngine(ContinuousServeEngine):
                 self._active[slot] = False
                 self._active_dirty = True
         n_chunk = self._advance_chunks(chunks, t_dispatch)
+        # whole-prompt admissions (not chunkable) ride this dispatch's
+        # triple: the documented bypass of max_step_tokens
+        n_chunk += self._whole_tokens
+        self._whole_tokens = 0
         if tr:
             tr.emit(ev.EV_STEP_BUDGET, len(pairs) + n_chunk)
             tr.emit(ev.EV_CHUNK_TOKENS, n_chunk)
@@ -367,9 +387,12 @@ class UnifiedServeEngine(ContinuousServeEngine):
         t_run0 = time.perf_counter()
         with torch.inference_mode():
             while inflight or not self.scheduler.drained():
+                if not self.chunkable:
+                    self._admit_whole_prompts()
                 pairs = [(s, r) for s, r in self.scheduler.active()
                          if self._active[s]]
-                if tr and (self.queue or self._prefilling.any()):
+                if self.chunkable and tr and (self.queue
+                                              or self._prefilling.any()):
                     with tr.phase(ev.PHASE_ADMIT):
                         chunks = self._plan_chunks(pairs)
                 else:
@@ -379,11 +402,20 @@ class UnifiedServeEngine(ContinuousServeEngine):
                 self._flush_cow()  # CoW copies land before the burst writes
                 self.stats["peak_active"] = max(self.stats["peak_active"],
                                                 self.scheduler.occupancy())
-                self.stats["peak_blocks"] = max(self.stats["peak_blocks"],
-                                                self.pool.num_active())
-                self.stats["peak_shared"] = max(self.stats["peak_shared"],
-                                                self.pool.num_shared())
+                if self.pool is not None:
+                    self.stats["peak_blocks"] = max(self.stats["peak_blocks"],
+                                                    self.pool.num_active())
+                    self.stats["peak_shared"] = max(self.stats["peak_shared"],
+                                                    self.pool.num_shared())
                 dispatched = self._dispatch(pairs, steps, chunks)
+                if dispatched is None and self._whole_tokens and tr:
+                    # whole-prompt prefills with nothing left to decode
+                    # (e.g. one-token requests retiring at prefill): no
+                    # later dispatch will fold their triple in
+                    tr.emit(ev.EV_STEP_BUDGET, self._whole_tokens)
+                    tr.emit(ev.EV_CHUNK_TOKENS, self._whole_tokens)
+                    tr.emit(ev.EV_DECODE_TOKENS, 0)
+                    self._whole_tokens = 0
                 if dispatched is None and not inflight \
                         and not self.scheduler.drained():
                     # several prefill streams can jointly wedge the pool
@@ -404,6 +436,22 @@ class UnifiedServeEngine(ContinuousServeEngine):
         self.stats["seconds"] += time.perf_counter() - t_run0
         return {r.rid: np.asarray(r.tokens, np.int32)
                 for r in self.scheduler.completed[done0:]}
+
+    def _admit_whole_prompts(self):
+        """Budget-looped whole-prompt admission of a state-carrying family
+        through the inherited grouped-prefill path."""
+        tr = self.tracer
+        if self.queue and tr:
+            with tr.phase(ev.PHASE_ADMIT):
+                admissions = self.scheduler.admissions()
+        else:
+            admissions = self.scheduler.admissions()
+        for members in self._prefill_groups(admissions):
+            # counted BEFORE the prefill: it appends the first sampled
+            # token, growing input_ids()
+            self._whole_tokens += sum(
+                self._start_index(r) - r.prefix_hit_tokens for _, r in members)
+            self._do_prefill(members)
 
     def beam_search(self, prompt, num_tokens: int, *, width: int = 4):
         raise NotImplementedError("beam search is not ported yet")

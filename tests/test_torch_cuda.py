@@ -1,5 +1,6 @@
 """Torch port on the card: the CUDA paged kernels (native and quantized
 int8/fp8 pools) and the flash kernel against their plain torch versions,
+the SSD scan kernel and its plain version against the float64 oracle,
 and the engines' kernel-vs-plain greedy invariant.
 
 Every test here needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
@@ -18,6 +19,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import quant  # noqa: E402
 from repro_torch.kernels.attention import flash, ops, paged  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import scan as ssd_scan  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine  # noqa: E402
 from repro_torch.serve.step import UnifiedServeEngine  # noqa: E402
@@ -182,29 +186,98 @@ def test_legacy_and_fixed_batch_kernel_equals_plain_greedy(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
-def test_engine_kernel_equals_plain_greedy(cuda_device, kv_dtype):
+@pytest.mark.parametrize("arch,kv_dtype", [("granite-8b", "fp16"),
+                                           ("granite-8b", "int8"),
+                                           ("mamba2-370m", "fp16")],
+                         ids=["fp16", "int8", "mamba2"])
+def test_engine_kernel_equals_plain_greedy(cuda_device, arch, kv_dtype):
     """kernel_mode pallas (CUDA kernels) and xla (plain path) serve the
     same greedy streams on reduced granite in float32, over a native and
-    an int8 pool."""
+    an int8 pool, and on reduced mamba2 (the SSD scan kernel)."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 512, (n,)).astype(np.int32) for n in (7, 16, 21, 30)]
     streams = []
     for mode in ("pallas", "xla"):
-        cfg = reduced(get_config("granite-8b"), kernel_mode=mode,
-                      kv_dtype=kv_dtype)
+        cfg = reduced(get_config(arch), kernel_mode=mode, kv_dtype=kv_dtype)
         eng = UnifiedServeEngine(cfg, build_model(cfg, device=cuda_device),
                                  device=cuda_device, num_slots=2, max_len=48,
                                  chunk_size=8)
         ops.reset_counts()
+        ssd_ops.reset_counts()
         reqs = [eng.submit(p, 10) for p in prompts]
         out = eng.run()
         streams.append([out[r.rid] for r in reqs])
-        count = "launches" if kv_dtype == "fp16" else "quant_launches"
-        launched = [getattr(w, count) for w in (ops.paged_attention,
-                                                ops.paged_span_attention)]
+        if arch == "mamba2-370m":
+            launched = [ssd_ops.ssd_scan.launches]
+            assert (ssd_scan.ssd_chunked_plain.calls == 0) == (mode == "pallas")
+        else:
+            count = "launches" if kv_dtype == "fp16" else "quant_launches"
+            launched = [getattr(w, count) for w in (ops.paged_attention,
+                                                    ops.paged_span_attention)]
         assert all(n > 0 for n in launched) == (mode == "pallas"), launched
         assert sum(launched) == 0 or mode == "pallas"
     for a, b in zip(*streams):
         np.testing.assert_array_equal(a, b)
+
+
+def _ssd_inputs(dev, dtype, b, s, h=32, p=64, n=128, g=1, *, seed=0,
+                dt_max=None):
+    """x/B/C normal in ``dtype``; dt and a_log drawn as the model's inits
+    (dt in [1e-3, 0.1] log-uniform, A ~ U[1, 16]) or, with ``dt_max``,
+    dt ~ U[0, dt_max] (large dt * |a|: exp overflows above the diagonal)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(dtype)
+    u = torch.rand((b, s, h), generator=gen, device=dev)
+    if dt_max is None:
+        dt = torch.exp(u * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+    else:
+        dt = u * dt_max
+    a_log = torch.log(1 + 15 * torch.rand((h,), generator=gen, device=dev))
+    return mk(b, s, h, p), dt, a_log, mk(b, s, g, n), mk(b, s, g, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    # b, s, h, p, n, g, dt_max: full width (ragged, a long prompt, a wave
+    # of 4), an overflow-prone dt, the JAX test's grouped cases
+    (1, 200, 32, 64, 128, 1, None), (4, 300, 32, 64, 128, 1, None),
+    (1, 512, 32, 64, 128, 1, None), (1, 300, 32, 64, 128, 1, 3.0),
+    (1, 100, 2, 32, 16, 2, None), (2, 64, 8, 16, 8, 4, None),
+], ids=["200", "4x300", "512", "overflow", "g2", "g4"])
+def test_ssd_kernel_and_plain_hold_to_f64_oracle(cuda_device, dtype, shape):
+    """Kernel and plain version each within the stated check of the
+    float64 recurrence (``ref.check_ratio`` <= 1), finite, y in x's dtype."""
+    b, s, h, p, n, g, dt_max = shape
+    x, dt, a_log, bm, cm = _ssd_inputs(cuda_device, dtype, b, s, h, p, n, g,
+                                       dt_max=dt_max)
+    y, state = ssd_scan.ssd_scan_fwd(x, dt, a_log, bm, cm)
+    py, pstate = ssd_scan.ssd_chunked_plain(x, dt, a_log, bm, cm, 256)
+    ry, rstate = ssd_ref.ssd_sequential_ref(x, dt, a_log, bm, cm)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    for got, want in ((y, ry), (state, rstate), (py, ry), (pstate, rstate)):
+        assert torch.isfinite(got).all()
+        assert ssd_ref.check_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_strided_views_and_refuses_what_it_cannot_take(
+        cuda_device):
+    """x as a slice of a wider projection, B/C as group slices of one
+    buffer: read in place.  float16 under kernel_mode pallas raises and
+    runs no plain path."""
+    x, dt, a_log, _, _ = _ssd_inputs(cuda_device, torch.float32, 2, 77)
+    wide = torch.randn(2, 77, 2, 128, device=cuda_device)  # [.., B|C, N]
+    bm, cm = wide[:, :, :1], wide[:, :, 1:]
+    xs = torch.cat([x, x], dim=3)[..., :64]
+    y, state = ssd_scan.ssd_scan_fwd(xs, dt, a_log, bm, cm)
+    ry, rstate = ssd_ref.ssd_sequential_ref(xs, dt, a_log, bm, cm)
+    assert ssd_ref.check_ratio(y, ry) <= 1 and ssd_ref.check_ratio(state, rstate) <= 1
+    ssd_ops.reset_counts()
+    with pytest.raises(NotImplementedError, match="no silent fallback"):
+        ssd_ops.ssd_scan(x.half(), dt, a_log, bm.half(), cm.half(), chunk=256,
+                         mode="pallas")
+    assert ssd_ops.ssd_scan.launches == 0
+    assert ssd_scan.ssd_chunked_plain.calls == 0

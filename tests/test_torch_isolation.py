@@ -1,5 +1,6 @@
-"""Torch port isolation: every ``repro_torch`` module imports, and the
-reduced CPU engines serve (the legacy one traced into a ``.prv``), in a
+"""Torch port isolation: every ``repro_torch`` module imports (the ssm
+model and the SSD scan package included), and the reduced CPU engines
+serve (the legacy one traced into a ``.prv``; mamba2 unified), in a
 process where ``jax`` and ``repro`` cannot be imported at all; no port
 source names them."""
 from __future__ import annotations
@@ -52,6 +53,10 @@ with tempfile.TemporaryDirectory() as tmp:
     paths = xtrace.write_prv(tracer.finish(), tmp + "/serve")
     lat = xtrace.serve_latency_summary(xtrace.parse_prv(paths["prv"]))
 assert lat["ttft_us"]["count"] == 1, lat
+ssm = UnifiedServeEngine(reduced(get_config("mamba2-370m"), num_layers=1),
+                         device="cpu", num_slots=1, max_len=32)
+req = ssm.submit(np.arange(9, dtype=np.int32), 5)
+assert len(ssm.run()[req.rid]) == 5 and ssm.pool is None
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print("ok", len(mods))

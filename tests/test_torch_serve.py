@@ -218,6 +218,30 @@ def test_cli_serves_quantized_pool_on_cpu(capsys, mode, kv_dtype, storage):
             serve_cli.main(["--kv-dtype", kv_dtype, "--mode", mode])
 
 
+def test_cli_serves_mamba2_with_whole_prompt_admission_on_cpu(capsys):
+    """The ssm family serves in the default unified mode: whole-prompt
+    admission, no pool (so no pool or attention-kernel line)."""
+    assert serve_cli.main(["--device", "cpu", "--arch", "mamba2-370m",
+                           "--requests", "4", "--slots", "2",
+                           "--prompt-len", "12", "--gen", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "16 tokens" in out, out
+    assert ("(chunked prefill off — state-carrying family, whole-prompt "
+            "admission)") in out, out
+    assert "paged pool" not in out and "attention kernels" not in out, out
+    if not torch.cuda.is_available():  # the card is the default device
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve_cli.main(["--arch", "mamba2-370m"])
+
+
+@pytest.mark.parametrize("mode", ["continuous", "static"])
+def test_cli_mamba2_other_modes_name_the_next_slice(capsys, mode):
+    with pytest.raises(SystemExit):
+        serve_cli.main(["--device", "cpu", "--arch", "mamba2-370m",
+                        "--mode", mode])
+    assert "next slice" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("flag", [["--beam", "2"], ["--mp", "2"],
                                   ["--spec", "ngram"], ["--overlap", "on"],
                                   ["--replicas", "2"], ["--n", "2"],
