@@ -30,7 +30,14 @@ Phases (each prints its own lines; any failure exits non-zero):
    B 1 / 4, bf16 and f32), at an overflow-prone dt * a and at the JAX
    test's grouped shapes (G 2, 4), held to ``ssd_scan.ref.check_ratio``
    <= 1 (the check PERF.md states); then timed at the wave's longest
-   prompt (no single PyTorch call computes the scan: no library time);
+   prompt (no single PyTorch call computes the scan: no library time).
+   The span bodies (kernels 2/2q: bf16 q on the tensor cores with key
+   splits, f32 q on the CUDA cores) against the float64 attention oracle
+   (``kernels/attention/ref.py``) in 30 cases — native, int8 and fp8
+   pools, window off and 100, the main-path rows, a block-unaligned
+   start with a 5-token row, a 2560-token table, head dim 64 — held to
+   ``ref.check_ratio`` <= 1, a forced single split to the oracle and to
+   the split output within one bf16 ulp;
 4. full-width granite-8b (36 layers, d_model 4096, bf16, random weights
    from a seed), one model object for both waves:
    a. through ``UnifiedServeEngine(device="cuda")``: 8 requests of
@@ -56,7 +63,7 @@ Phases (each prints its own lines; any failure exits non-zero):
       body and no plain path; the pool must hold 76,032 B/token (bf16:
       147,456); first tokens as in (a) at the per-dtype tolerance
       ``FIRST_TOKEN_TOL``; tok/s and the greedy token match against the
-      bf16 wave of the same engine;
+      bf16 wave of the same engine; (c) and (d) then one profiled wave;
    f. full-width mamba2-370m (48 layers, d_model 1024, bf16, random
       weights from a seed) on the same stream through
       ``UnifiedServeEngine``, traced (segments flushed, merged into one
@@ -310,6 +317,10 @@ def kernel_phase(torch, np):
                 results["paged_span"]["bound_ms"], \
                     results["paged_span"]["bound_by"] = bound_ms(
                         dt_name, q2, kp, bt2, starts[:2], lens[:2], None, g=4)
+                one = time_ms(torch, lambda: paged.paged_span_fwd(
+                    q2, kp, vp, bt2, st2, ln2, splits=1), flush)
+                print(f"[smoke] paged_span bf16 main shapes with one key "
+                      f"split (no merge): kernel {one:.4f} ms")
     for name, r in results.items():
         print(f"[smoke] {name} bf16 main shapes: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
@@ -431,6 +442,88 @@ def quant_kernel_phase(torch, np):
         require(False, "quantized codes without scales were attended")
     del flush_buf
     return results
+
+
+def span_oracle_phase(torch, np):
+    """Kernels 2/2q against the float64 oracle (``kernels/attention/
+    ref.py``): bf16 q over native, int8 and fp8 pools, window off and 100,
+    at the main-path rows, a block-unaligned start with a 5-token row
+    (Q*G = 20), a 2560-token table (the key split at work) and head dim
+    64; f32 q (the CUDA-core body) at the main-path rows.  Each case holds
+    the kernel, and a forced single split, to ``ref.check_ratio`` <= 1 on
+    the valid queries and the two to each other within one bf16 ulp
+    (``ref.SPLIT_CHECK``), and prints the plain version's ratio beside
+    them (its bf16 softmax weights, and a quantized view dequantized to
+    bf16, are not held to the bound).  Returns the kernel's ratio at the
+    timed shapes per pool."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.attention import paged
+    from repro_torch.kernels.attention import ref as aref
+
+    rng = np.random.default_rng(7)
+    cases = [  # name, q_len, d, w, nb, starts, lens
+        ("main rows", 32, 128, 34, 4096, [192, 416, 0], [32, 17, 0]),
+        ("unaligned + 5-token row", 5, 128, 34, 4096, [203, 37, 0], [5, 3, 0]),
+        ("2560-token table", 32, 128, 160, 1024, [2500, 1203], [32, 9]),
+        ("head dim 64", 32, 64, 34, 4096, [192, 416, 0], [32, 17, 0]),
+    ]
+    worst, ratios, n = 0.0, {}, 0
+    for dt_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dt_name)
+        for kv_dtype in ("fp16", "int8", "fp8"):
+            for window in (None, 100):
+                for name, q_len, d, w, nb, starts, lens in cases:
+                    if dt_name == "float32" and name != "main rows":
+                        continue
+                    q, kp, vp, bt, st, ln = _case(
+                        torch, rng, dt, b=len(starts), q_len=q_len, hkv=8, g=4,
+                        d=d, bs=16, w=w, nb=nb, starts=starts, lens=lens)
+                    sc = {}
+                    if kv_dtype != "fp16":
+                        kp, ks = quant.kv_quantize(kp, kv_dtype)
+                        vp, vs = quant.kv_quantize(vp, kv_dtype)
+                        sc = {"k_scales": ks, "v_scales": vs}
+                    out = paged.paged_span_fwd(q, kp, vp, bt, st, ln,
+                                               window=window, **sc)
+                    plain = paged.paged_span_plain(q, kp, vp, bt, st, ln,
+                                                   window=window, **sc)
+                    want = aref.paged_span_ref(q, kp, vp, bt, st, ln,
+                                               window=window, **sc)
+                    valid = aref.span_valid(ln, q_len)
+                    r_k = aref.check_ratio(out, want, valid=valid)
+                    r_p = aref.check_ratio(plain, want, valid=valid)
+                    splits = (paged.span_split_plan(
+                        len(starts), 8, q_len * 4, w,
+                        torch.cuda.get_device_properties(0).multi_processor_count)[1]
+                        if dt_name == "bfloat16" else 1)
+                    r_1 = r_1k = 0.0
+                    if splits > 1:
+                        one = paged.paged_span_fwd(q, kp, vp, bt, st, ln,
+                                                   window=window, splits=1, **sc)
+                        r_1k = aref.check_ratio(one, want, valid=valid)
+                        r_1 = aref.check_ratio(out, one, *aref.SPLIT_CHECK,
+                                               valid=valid)
+                        require((one[ln == 0] == 0).all().item(),
+                                "single split: row_len == 0 row not zeros")
+                    torch.cuda.synchronize()
+                    what = (f"paged_span {dt_name} q, {kv_dtype} pool, window="
+                            f"{window}, {name}")
+                    print(f"[smoke] {what}: oracle ratio kernel {r_k:.3f} "
+                          f"(one split {r_1k:.3f}; plain {r_p:.3f}); {splits} "
+                          f"key splits vs one: ratio {r_1:.3f} (one bf16 ulp)")
+                    require(torch.isfinite(out).all().item(), f"{what}: non-finite")
+                    require((out[ln == 0] == 0).all().item(),
+                            f"{what}: row_len == 0 row not zeros")
+                    require(max(r_k, r_1k) <= 1.0,
+                            f"{what}: oracle ratio {r_k} / one split {r_1k}")
+                    require(r_1 <= 1.0, f"{what}: split vs one split {r_1}")
+                    worst, n = max(worst, r_k, r_1k), n + 1
+                    if dt_name == "bfloat16" and window is None \
+                            and name == "main rows":
+                        ratios[kv_dtype] = r_k
+    print(f"[smoke] paged_span oracle: {n} cases, every kernel ratio <= 1 "
+          f"(worst {worst:.3f})")
+    return ratios
 
 
 def flash_bound_ms(dtype_name, q, k, *, causal, window, q_offset):
@@ -804,8 +897,8 @@ def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
     """Waves (c)-(e): the phase-4 stream through the ``kind`` engine over a
     ``kv_dtype`` pool, same model object.  Counts zeroed just before the
     counted run and read just after; ``ref`` is the bf16 wave's greedy
-    streams of the same engine.  Not profiled (a window costs ~60 s; chip
-    runs 2-4 of PR 14 recorded these waves' profiles).  Returns the
+    streams of the same engine.  The unified waves (c), (d) then run one
+    profiled window; the legacy wave (e) is not profiled.  Returns the
     quantized launch counts."""
     from repro_torch.kernels.attention import flash, ops, paged
     from repro_torch.serve.engine import ContinuousServeEngine
@@ -861,6 +954,8 @@ def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
     check_first_tokens(torch, model, cfg, prompts,
                        [out[r.rid][0] for r in reqs], f"{what}, full width",
                        tol=FIRST_TOKEN_TOL[kv_dtype])
+    if kind == "unified":
+        profile_window(torch, eng, [p[:256] for p in prompts[:4]], gen, what)
     del eng
     torch.cuda.empty_cache()
     return {k: launches[k] for k in ("paged_decode_quant", "paged_span_quant")}
@@ -972,19 +1067,22 @@ def mamba2_wave(torch, np):
 
 
 def profile_window(torch, eng, prompts, gen, label):
-    """Where the time goes: one wave (4 requests) under ``torch.profiler``;
-    device-busy share of the wall time and the device time by kernel
-    family.  Runs outside the counted main-path waves.  Returns the idle
-    share (None when the profiler saw no device time)."""
+    """Where the time goes: one wave (4 requests) under ``torch.profiler``,
+    recording device activity only (host op events as well multiply the
+    aggregation time); device-busy share of the wall time and the
+    device time by kernel family.  Runs outside the counted main-path
+    waves.  Returns the idle share (None when the profiler saw no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for p in prompts:
             eng.submit(p, gen)
         eng.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    t_post = time.perf_counter()
     cuda = torch.autograd.DeviceType.CUDA
     kern = [e for e in prof.key_averages() if e.device_type == cuda]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
@@ -1004,7 +1102,8 @@ def profile_window(torch, eng, prompts, gen, label):
     idle = 1 - busy_ms / wall_ms
     print(f"[smoke] {label} profile ({len(prompts)} requests x {gen} tokens): "
           f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({busy_ms / wall_ms:.1%}), idle {idle:.1%}")
+          f"({busy_ms / wall_ms:.1%}), idle {idle:.1%}; aggregation "
+          f"{time.perf_counter() - t_post:.1f} s")
     print(f"[smoke] {label} profile device time by family: " + ", ".join(
         f"{k} {v:.1f} ms ({v / busy_ms:.1%})" for k, v in fams.items()))
     for e in top:
@@ -1206,6 +1305,9 @@ def main() -> int:
 
     timings = timed("paged kernels", kernel_phase)
     timings.update(timed("quantized paged kernels", quant_kernel_phase))
+    ratios = timed("paged span oracle", span_oracle_phase)
+    timings["paged_span"]["oracle_ratio"] = ratios["fp16"]
+    timings["paged_span_quant"]["oracle_ratio"] = ratios["int8"]
     timings.update(timed("flash kernel", flash_phase))
     timings.update(timed("ssd scan kernel", ssd_phase))
     launches = timed("full width", full_width_phase)
@@ -1219,7 +1321,9 @@ def main() -> int:
                     ms=timings[name]["ms"], plain_ms=timings[name]["plain_ms"],
                     bound_ms=timings[name]["bound_ms"],
                     bound_by=timings[name]["bound_by"],
-                    library_ms=timings[name]["library_ms"])
+                    library_ms=timings[name]["library_ms"],
+                    **({"oracle_ratio": timings[name]["oracle_ratio"]}
+                       if "oracle_ratio" in timings[name] else {}))
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)

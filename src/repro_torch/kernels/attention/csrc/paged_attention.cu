@@ -9,54 +9,79 @@
 //                    unified serve step's prefill chunks), GQA folded as
 //                    row j*G+g.
 // Every kernel is templated on the pool's storage type P: the model dtype
-// T (native pool), int8_t or __nv_fp8_e4m3 (quantized pool: codes plus
+// (native pool), int8_t or __nv_fp8_e4m3 (quantized pool: codes plus
 // per-(position, kv head) f32 scales in the engine layout [NB, bs, Hkv]).
 //
 // Bound.  Both are memory-bound at the serve shapes (G = 4 query rows per
 // kv head for decode, 32*4 folded rows for a 32-token chunk, D = 128,
 // block size 16): every K/V block a row attends is read once per kv head,
-// ~2*D*4 flops per folded row per key against 2*D*2 bytes of bf16 K+V per
+// ~4*D flops per folded row per key against 2*D*2 bytes of bf16 K+V per
 // key, far below the ~295 flop/byte the H100 needs before compute binds.
 // The least time is (K/V bytes of the attended blocks + q + out) /
 // 3.35 TB/s.  A quantized pool halves the K/V bytes (1-byte codes) and
 // adds 2 * 4 bytes of scales per key and kv head.
 //
-// Design.
+// Shared by every body.
 //   * The pool is read IN PLACE in the engine layout [NB, bs, Hkv, D]
 //     through its strides: no head-major copy of the pool per call (the
 //     JAX wrapper transposes the whole pool; on the card that would cost
 //     the pool's size, not the tokens attended, on every call).
-//   * One CTA per (slot|row, kv head[, tile of 16 folded query rows]).  The
-//     CTA loads its own block-table row and index/start/len (the TPU's
-//     scalar-prefetched SMEM tables), and walks the table in a loop that
+//   * A CTA loads its own block-table row and index/start/len (the TPU's
+//     scalar-prefetched SMEM tables) and walks the table in a loop that
 //     replaces the TPU's sequential W grid axis.  Only the table entries
 //     between the first in-window block and the block of the row's last
 //     query position are visited, and NULL entries (block 0) among them
 //     are skipped, so no byte of a future, out-of-window or NULL block is
 //     read.  Culling is per ROW: a row's result does not depend on the
-//     tile it lands in.
-//   * A CTA has few blocks of its own to walk (a decode slot owns one
-//     (slot, kv head) chain), so what bounds it is memory latency, not
-//     bandwidth: a 4-stage ring of cp.async copies keeps the next three
-//     K/V blocks in flight while the current one is scored from shared
-//     memory.
-//   * Each warp keeps the online softmax (m, l, acc) of its query rows in
-//     registers, a lane owning D/32 head dims, and scores 8 keys at a
-//     time so their warp reductions overlap instead of serialising.
-//   * f32 math throughout; q is scaled by 1/sqrt(D) in f32 before the
-//     dot; the output is written in q's dtype after acc / max(l, 1e-30).
+//     tile or key split it lands in.
+//   * A 4-stage ring of cp.async copies keeps the next three K/V blocks
+//     in flight while the current one is consumed from shared memory.
+//   * f32 scores, an f32 online softmax (m, l, acc) and f32 accumulation;
+//     the output is written in q's dtype after acc / max(l, 1e-30); a span
+//     row with row_len == 0 writes zeros.
 //   * Quantized pools: codes are staged in their storage type (16 codes
-//     per 16-byte copy, half a bf16 stage), and each staged block brings
-//     its bs K and bs V scales for the CTA's kv head (strided by Hkv in
-//     the pool, so 4-byte cp.async copies into the same ring stage).
-//     Dequant is in f32 and folded into the softmax: the K scale
-//     multiplies the score of its key (q . (k * ks) == (q . k) * ks) and
-//     the V scale multiplies the softmax weight before acc += p * v
-//     (p * (v * vs) == (p * vs) * v), one multiply per key instead of one
-//     per element.  fp8 codes convert through the hardware e4m3 cvt.
-//   * A span row with row_len == 0 writes zeros.
-// Not yet: split-K over long tables (decode has only B*Hkv CTAs), tensor
-// cores (wgmma) for the span's 16-row tiles, TMA.
+//     per 16-byte copy) with the block's bs K and bs V scales of the CTA's
+//     kv head (4-byte copies into the same ring stage).  The K scale
+//     multiplies the f32 score of its key (q . (k * ks) == (q . k) * ks)
+//     and the V scale the softmax weight before it meets V
+//     (p * (v * vs) == (p * vs) * v): one multiply per key, not per
+//     element.  fp8 codes convert through the hardware e4m3 cvt.
+//
+// Three bodies, chosen statically by q's dtype and the call:
+//   * decode (f32 and bf16 q) and span with f32 q: attend_rows, on the
+//     CUDA cores.  One CTA per (slot|row, kv head[, tile of 16 folded
+//     rows]); each warp keeps the online softmax of its rows in registers,
+//     a lane owning D/32 head dims, and scores 8 keys at a time so their
+//     warp reductions overlap.  q is scaled by 1/sqrt(D) in f32.  f32 q
+//     stays here because the tensor cores would round its inputs (TF32)
+//     past the f32 check.
+//   * span with bf16 q: paged_span_tc_kernel, on the tensor cores
+//     (mma.sync.m16n8k16, bf16 in, f32 accumulate).
+//       - One CTA covers up to 128 folded rows (8 warps x one 16-row m
+//         tile) of a (row, kv head): the main path's 32-token chunk at
+//         G = 4 is exactly 128 rows, so each attended block is staged
+//         once per (row, kv head, key split), not once per 16 rows.  A
+//         ragged Q*G masks its tail rows and reads nothing past q; a
+//         larger Q*G takes ceil(Q*G / 128) row tiles, each staging the
+//         blocks.
+//       - The row's visited table range is split into `splits`
+//         contiguous parts, one CTA each (grid x), so a batch of a few
+//         rows still fills the 132 SMs.  Each split writes its f32
+//         (m, l, acc) to a workspace and paged_span_merge_kernel rescales
+//         and sums them; with one split the CTA writes the output itself.
+//         The host plan (kernels/attention/paged.py: span_split_plan)
+//         picks the count from the shapes alone.
+//       - S = Q.K^T from bf16 fragments (ldmatrix from padded shared
+//         tiles, exact products) into f32; 1/sqrt(D) (times log2 e, for
+//         exp2) and the K scale multiply the f32 score, never a bf16 q.
+//       - P.V keeps p at f32 precision: p (times the V scale) is split
+//         into hi = bf16(p) and lo = bf16(p - hi), and both products go
+//         into the same f32 accumulator (|p - hi - lo| <= 2^-16 |p|).
+//       - Quantized pools: each staged block's codes are converted to
+//         bf16 in shared memory (exact for int8 and e4m3) before the
+//         same products.
+// Not yet: split-K for decode (only B*Hkv CTAs), wgmma and TMA, one CTA
+// (or a cluster) for Q*G > 128.
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -312,6 +337,404 @@ paged_span_kernel(const T* __restrict__ q, const P* __restrict__ kp,
       r1, row_start[b], len, window, scale);
 }
 
+// ---------------------------------------------------------------------
+// paged_span with bf16 q: the tensor-core body and its split merge
+// ---------------------------------------------------------------------
+constexpr int kTcWarps = 8;
+constexpr int kTcRows = kTcWarps * 16;  // folded rows per CTA: one m16 tile a warp
+
+__host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+// bf16 tiles keep rows of D + 8 elements (16 bytes of padding), so the 8
+// row addresses of one ldmatrix fall in 8 different bank groups
+template <typename P, int D>
+__host__ __device__ constexpr size_t tc_stage_bytes(int bs) {
+  return kQuant<__nv_bfloat16, P>
+             ? (size_t)2 * bs * D * sizeof(P) + (size_t)2 * bs * sizeof(float)
+             : (size_t)2 * round16(bs) * (D + 8) * sizeof(__nv_bfloat16);
+}
+
+// the q tile, the ring, and (quantized) one K/V block converted to bf16
+template <typename P, int D>
+__host__ __device__ constexpr size_t tc_smem_bytes(int bs) {
+  return (size_t)kTcRows * (D + 8) * sizeof(__nv_bfloat16) +
+         kStages * tc_stage_bytes<P, D>(bs) +
+         (kQuant<__nv_bfloat16, P>
+              ? (size_t)2 * round16(bs) * (D + 8) * sizeof(__nv_bfloat16) : 0);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x4(const void* p, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// (x, y) = hi + lo as two bf16 pairs, |x - hi - lo| <= 2^-16 |x|
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// One CTA per (key split, kv head x row tile, row).  Warp w owns folded
+// rows r0 + 16w .. r0 + 16w + 15; lane (g = lane / 4, c = lane % 4) holds
+// rows 16w + g and 16w + g + 8 of the m16n8 fragments, output columns
+// 8n + 2c and 8n + 2c + 1.  Scores and the softmax run in log2 units
+// (scale_log2 = log2(e) / sqrt(D)).
+template <typename P, int D>
+__global__ void __launch_bounds__(kTcWarps * 32, 1)
+paged_span_tc_kernel(const __nv_bfloat16* __restrict__ q, const P* __restrict__ kp,
+                     const P* __restrict__ vp, const int* __restrict__ bt,
+                     const int* __restrict__ row_start,
+                     const int* __restrict__ row_len, __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ part_acc, float* __restrict__ part_ml,
+                     int B, int Q, int Hq, int Hkv, int W, int bs, Pool pool,
+                     int window, float scale_log2) {
+  using bf16 = __nv_bfloat16;
+  constexpr bool QUANT = kQuant<bf16, P>;
+  constexpr int LD = D + 8;
+  constexpr int NT = D / 8;  // n8 tiles of a row's output
+  constexpr int THREADS = kTcWarps * 32;
+  constexpr int CHUNK = 16 / sizeof(P);  // elements per 16-byte copy
+  const int splits = gridDim.x, split = blockIdx.x;
+  const int tiles = gridDim.y / Hkv;
+  const int kh = blockIdx.y / tiles, r0 = (blockIdx.y % tiles) * kTcRows;
+  const int b = blockIdx.z;
+  const int G = Hq / Hkv, R = Q * G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto orow = [&](int r) {  // element offset of folded row r in q and out
+    return ((long long)(b * Q + r / G) * Hq + kh * G + r % G) * D;
+  };
+  const int len = row_len[b];
+  if (len <= 0) {  // empty row: zeros, never NaN (with splits, the merge's)
+    if (splits == 1) {
+      for (int i = threadIdx.x; i < kTcRows * (D / 8); i += THREADS) {
+        const int r = r0 + i / (D / 8);
+        if (r < R)
+          *reinterpret_cast<uint4*>(out + orow(r) + i % (D / 8) * 8) = make_uint4(0, 0, 0, 0);
+      }
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  unsigned char* ring = smem_raw + (size_t)kTcRows * LD * sizeof(bf16);
+  const size_t stage = tc_stage_bytes<P, D>(bs);
+  bf16* conv = reinterpret_cast<bf16*>(ring + kStages * stage);  // quantized
+  const int bs16 = round16(bs);
+
+  // pad key rows [bs, bs16) of every bf16 K/V tile stay zero (never copied)
+  for (int i = threadIdx.x; i < (bs16 - bs) * (D / 8); i += THREADS) {
+    const int t = bs + i / (D / 8), d = i % (D / 8) * 8;
+    for (int s = 0; s < (QUANT ? 1 : kStages); ++s) {
+      bf16* kt = QUANT ? conv : reinterpret_cast<bf16*>(ring + s * stage);
+      *reinterpret_cast<uint4*>(kt + t * LD + d) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(kt + (bs16 + t) * LD + d) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  // the q tile; rows past Q*G are zeros, never read from q
+  for (int i = threadIdx.x; i < kTcRows * (D / 8); i += THREADS) {
+    const int rl = i / (D / 8), d = i % (D / 8) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + rl < R) v = *reinterpret_cast<const uint4*>(q + orow(r0 + rl) + d);
+    *reinterpret_cast<uint4*>(qs + rl * LD + d) = v;
+  }
+
+  // this split's share of the row's visited table entries [w_lo, w_hi]
+  const int start = row_start[b];
+  const int last = start + len - 1;
+  const int w_hi = min(W - 1, last / bs);
+  int w_lo = 0;
+  if (window > 0 && start - window - bs + 1 >= 0) w_lo = (start - window - bs + 1) / bs + 1;
+  const int per = (w_hi - w_lo + splits) / splits;
+  const int s_lo = w_lo + split * per;
+  const int n = max(0, min(w_hi + 1, s_lo + per) - s_lo);
+  const int* bt_row = bt + (long long)b * W;
+
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int ra = r0 + warp * 16 + g, rb = ra + 8;
+  const int qpa = ra < R ? start + ra / G : -1;  // -1: a dead row sees no key
+  const int qpb = rb < R ? start + rb / G : -1;
+  const bool warp_live = r0 + warp * 16 < R;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  auto issue = [&](int it) {  // stage the it-th block of the split (async)
+    if (it < n) {
+      const int blk = bt_row[s_lo + it];
+      if (blk != 0) {
+        unsigned char* st = ring + (it % kStages) * stage;
+        const P* kb = kp + (long long)blk * pool.k_blk + (long long)kh * pool.k_head;
+        const P* vb = vp + (long long)blk * pool.v_blk + (long long)kh * pool.v_head;
+        // codes land unpadded; native bf16 rows land at the padded stride
+        P* kt = reinterpret_cast<P*>(st);
+        P* vt = kt + (QUANT ? bs * D : bs16 * LD);
+        for (int c = threadIdx.x * CHUNK; c < bs * D; c += THREADS * CHUNK) {
+          const int t = c / D, d = c % D;
+          const int o = QUANT ? c : t * LD + d;
+          cp_async16(kt + o, kb + t * pool.k_pos + d);
+          cp_async16(vt + o, vb + t * pool.v_pos + d);
+        }
+        if constexpr (QUANT) {
+          float* kss = reinterpret_cast<float*>(vt + bs * D);
+          float* vss = kss + bs;
+          const float* ksb = pool.ks + (long long)blk * pool.ks_blk + (long long)kh * pool.ks_head;
+          const float* vsb = pool.vs + (long long)blk * pool.vs_blk + (long long)kh * pool.vs_head;
+          for (int t = threadIdx.x; t < bs; t += THREADS) {
+            cp_async4(kss + t, ksb + t * pool.ks_pos);
+            cp_async4(vss + t, vsb + t * pool.vs_pos);
+          }
+        }
+      }
+    }
+    cp_async_commit();  // empty groups keep the wait count uniform
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int it = 0; it < n; ++it) {
+    issue(it + kStages - 1);
+    cp_async_wait<kStages - 1>();  // block `it` has landed
+    __syncthreads();
+    const int w = s_lo + it;
+    if (bt_row[w] != 0) {  // CTA-uniform; NULL blocks are never attended
+      const unsigned char* st = ring + (it % kStages) * stage;
+      const bf16* kt = reinterpret_cast<const bf16*>(st);
+      const float* kss = nullptr;
+      const float* vss = nullptr;
+      if constexpr (QUANT) {  // codes -> bf16 (exact), 8 a thread a step
+        const P* kc = reinterpret_cast<const P*>(st);
+        kss = reinterpret_cast<const float*>(kc + 2 * bs * D);
+        vss = kss + bs;
+        for (int c = threadIdx.x * 8; c < 2 * bs * D; c += THREADS * 8) {
+          const int half = c >= bs * D, e0 = c - half * bs * D;
+          const uint2 raw = *reinterpret_cast<const uint2*>(kc + c);
+          const P* code = reinterpret_cast<const P*>(&raw);
+          uint4 o;
+          uint32_t* ov = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ov[e] = as_u32(__floats2bfloat162_rn(to_f(code[2 * e]), to_f(code[2 * e + 1])));
+          *reinterpret_cast<uint4*>(conv + (half * bs16 + e0 / D) * LD + e0 % D) = o;
+        }
+        __syncthreads();
+        kt = conv;
+      }
+      const bf16* vt = kt + bs16 * LD;
+      if (warp_live) {  // warp-uniform
+        for (int t0 = 0; t0 < bs; t0 += 16) {
+          // S = q . k^T for 16 rows x 16 keys (two n8 tiles), f32
+          float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+          for (int k0 = 0; k0 < D; k0 += 16) {
+            uint32_t a[4], kf[4];
+            ldsm_x4(qs + (warp * 16 + (lane & 15)) * LD + k0 + (lane >> 4) * 8, a);
+            ldsm_x4(kt + (t0 + (lane & 7) + (lane >> 4) * 8) * LD + k0 + ((lane >> 3) & 1) * 8, kf);
+            mma_bf16(sc[0], a, kf[0], kf[1]);
+            mma_bf16(sc[1], a, kf[2], kf[3]);
+          }
+          // scale (and K dequant) the f32 score; causal, window, pad mask
+          float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int t = t0 + nt * 8 + c2 + e;
+              const int kpos = w * bs + t;
+              float f = scale_log2;
+              if constexpr (QUANT) f *= t < bs ? kss[t] : 0.f;
+              const bool ok_a = t < bs && kpos <= qpa && (window <= 0 || kpos > qpa - window);
+              const bool ok_b = t < bs && kpos <= qpb && (window <= 0 || kpos > qpb - window);
+              sc[nt][e] = ok_a ? sc[nt][e] * f : -INFINITY;
+              sc[nt][2 + e] = ok_b ? sc[nt][2 + e] * f : -INFINITY;
+              mx_a = fmaxf(mx_a, sc[nt][e]);
+              mx_b = fmaxf(mx_b, sc[nt][2 + e]);
+            }
+          }
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1) {  // over the 4 lanes of a row
+            mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o));
+            mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o));
+          }
+          if (!__any_sync(0xffffffffu, mx_a != -INFINITY || mx_b != -INFINITY))
+            continue;  // no row of the warp sees a key of this tile
+          const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+          const float u_a = mn_a == -INFINITY ? 0.f : mn_a;  // no key yet: p = 0
+          const float u_b = mn_b == -INFINITY ? 0.f : mn_b;
+          const float corr_a = exp2f(m_a - u_a), corr_b = exp2f(m_b - u_b);
+          m_a = mn_a;
+          m_b = mn_b;
+          float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              sc[nt][e] = exp2f(sc[nt][e] - u_a);  // masked: exp2(-inf) = 0
+              sc[nt][2 + e] = exp2f(sc[nt][2 + e] - u_b);
+              ps_a += sc[nt][e];
+              ps_b += sc[nt][2 + e];
+            }
+          }
+          l_a = l_a * corr_a + ps_a;
+          l_b = l_b * corr_b + ps_b;
+#pragma unroll
+          for (int i = 0; i < NT; ++i) {
+            acc[i][0] *= corr_a;
+            acc[i][1] *= corr_a;
+            acc[i][2] *= corr_b;
+            acc[i][3] *= corr_b;
+          }
+          if constexpr (QUANT) {  // V dequant on the weight, before the split
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int t = t0 + nt * 8 + c2 + e;
+                const float vsc = t < bs ? vss[t] : 0.f;
+                sc[nt][e] *= vsc;
+                sc[nt][2 + e] *= vsc;
+              }
+            }
+          }
+          // the C fragments of S are the A fragment of P (16 rows x 16 keys)
+          uint32_t hi[4], lo[4];
+          split_bf16(sc[0][0], sc[0][1], hi[0], lo[0]);
+          split_bf16(sc[0][2], sc[0][3], hi[1], lo[1]);
+          split_bf16(sc[1][0], sc[1][1], hi[2], lo[2]);
+          split_bf16(sc[1][2], sc[1][3], hi[3], lo[3]);
+#pragma unroll
+          for (int n0 = 0; n0 < D; n0 += 16) {
+            uint32_t vf[4];
+            ldsm_x4_t(vt + (t0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 + (lane >> 4) * 8, vf);
+            mma_bf16(acc[n0 / 8], hi, vf[0], vf[1]);
+            mma_bf16(acc[n0 / 8], lo, vf[0], vf[1]);
+            mma_bf16(acc[n0 / 8 + 1], hi, vf[2], vf[3]);
+            mma_bf16(acc[n0 / 8 + 1], lo, vf[2], vf[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before reuse
+  }
+  cp_async_wait<0>();
+  if (!warp_live) return;
+
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, o);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, o);
+  }
+  if (splits == 1) {
+    const float ia = 1.f / fmaxf(l_a, 1e-30f), ib = 1.f / fmaxf(l_b, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int d = i * 8 + c2;
+      if (ra < R)
+        *reinterpret_cast<__nv_bfloat162*>(out + orow(ra) + d) =
+            __floats2bfloat162_rn(acc[i][0] * ia, acc[i][1] * ia);
+      if (rb < R)
+        *reinterpret_cast<__nv_bfloat162*>(out + orow(rb) + d) =
+            __floats2bfloat162_rn(acc[i][2] * ib, acc[i][3] * ib);
+    }
+    return;
+  }
+  // partials [split][B][Hkv][R] x (acc[D], (m, l)), unnormalised
+  const long long base = ((long long)(split * B + b) * Hkv + kh) * R;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int d = i * 8 + c2;
+    if (ra < R)
+      *reinterpret_cast<float2*>(part_acc + (base + ra) * D + d) = make_float2(acc[i][0], acc[i][1]);
+    if (rb < R)
+      *reinterpret_cast<float2*>(part_acc + (base + rb) * D + d) = make_float2(acc[i][2], acc[i][3]);
+  }
+  if ((lane & 3) == 0) {
+    if (ra < R) *reinterpret_cast<float2*>(part_ml + (base + ra) * 2) = make_float2(m_a, l_a);
+    if (rb < R) *reinterpret_cast<float2*>(part_ml + (base + rb) * 2) = make_float2(m_b, l_b);
+  }
+}
+
+// Merge of the key splits: one warp per folded row, a lane owning D/32
+// head dims.  out = sum_s 2^(m_s - M) acc_s / max(sum_s 2^(m_s - M) l_s,
+// 1e-30), M = max_s m_s.  A split that saw no key (m_s = -inf) adds
+// nothing; a row that saw none, or a row with row_len == 0, gets zeros.
+constexpr int kMergeWarps = 8;
+
+template <int D>
+__global__ void __launch_bounds__(kMergeWarps * 32)
+paged_span_merge_kernel(const float* __restrict__ part_acc,
+                        const float* __restrict__ part_ml,
+                        const int* __restrict__ row_len,
+                        __nv_bfloat16* __restrict__ out, int B, int Q, int Hq,
+                        int Hkv, int splits) {
+  constexpr int EPT = D / 32;
+  const int G = Hq / Hkv, R = Q * G;
+  const int b = blockIdx.z, kh = blockIdx.y;
+  const int r = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= R) return;
+  float o[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) o[e] = 0.f;
+  if (row_len[b] > 0) {
+    const long long stride = (long long)B * Hkv * R;  // rows between splits
+    const long long row0 = ((long long)b * Hkv + kh) * R + r;
+    float ms = -INFINITY, ls = 0.f;
+    if (lane < splits) {
+      const float2 ml = *reinterpret_cast<const float2*>(part_ml + (row0 + lane * stride) * 2);
+      ms = ml.x;
+      ls = ml.y;
+    }
+    float mx = ms;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (mx != -INFINITY) {  // warp-uniform
+      const float wgt = ms == -INFINITY ? 0.f : exp2f(ms - mx);
+      float l = wgt * ls;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+      for (int s = 0; s < splits; ++s) {
+        const float ws = __shfl_sync(0xffffffffu, wgt, s);
+        if (ws == 0.f) continue;  // warp-uniform
+        const float* a = part_acc + (row0 + s * stride) * D;
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) o[e] += ws * a[e * 32 + lane];
+      }
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) o[e] *= inv;
+    }
+  }
+  const long long orow = ((long long)(b * Q + r / G) * Hq + kh * G + r % G) * D;
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) out[orow + e * 32 + lane] = __float2bfloat16(o[e]);
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -363,15 +786,49 @@ cudaError_t decode_kv(int kv, const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+template <typename P, int D>
+cudaError_t launch_span_tc(const void* q, const void* k, const void* v,
+                           const int* bt, const int* row_start, const int* row_len,
+                           void* out, float* part_acc, float* part_ml, int B,
+                           int Q, int Hq, int Hkv, int W, int bs, Pool pool,
+                           int window, float scale, int splits, cudaStream_t s) {
+  const size_t smem = tc_smem_bytes<P, D>(bs);
+  cudaError_t err = allow_smem(paged_span_tc_kernel<P, D>, smem);
+  if (err != cudaSuccess) return err;
+  const int R = Q * (Hq / Hkv);
+  const dim3 grid(splits, Hkv * ((R + kTcRows - 1) / kTcRows), B);
+  paged_span_tc_kernel<P, D><<<grid, kTcWarps * 32, smem, s>>>(
+      (const __nv_bfloat16*)q, (const P*)k, (const P*)v, bt, row_start, row_len,
+      (__nv_bfloat16*)out, part_acc, part_ml, B, Q, Hq, Hkv, W, bs, pool, window,
+      scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  paged_span_merge_kernel<D><<<dim3((R + kMergeWarps - 1) / kMergeWarps, Hkv, B),
+                               kMergeWarps * 32, 0, s>>>(
+      part_acc, part_ml, row_len, (__nv_bfloat16*)out, B, Q, Hq, Hkv, splits);
+  return cudaGetLastError();
+}
+
+// The span body is chosen by q's dtype T: f32 q runs attend_rows on the
+// CUDA cores, bf16 q the tensor-core body (with its key splits).
 template <typename T, int D>
 cudaError_t span_kv(int kv, const void* q, const void* k, const void* v,
                     const int* bt, const int* row_start, const int* row_len,
-                    void* out, int B, int Q, int Hq, int Hkv, int W, int bs,
-                    Pool pool, int window, float scale, cudaStream_t s) {
-  switch (kv) {
-    case 0: return launch_span<T, T, D>(q, k, v, bt, row_start, row_len, out, B, Q, Hq, Hkv, W, bs, pool, window, scale, s);
-    case 1: return launch_span<T, int8_t, D>(q, k, v, bt, row_start, row_len, out, B, Q, Hq, Hkv, W, bs, pool, window, scale, s);
-    case 2: return launch_span<T, __nv_fp8_e4m3, D>(q, k, v, bt, row_start, row_len, out, B, Q, Hq, Hkv, W, bs, pool, window, scale, s);
+                    void* out, float* part_acc, float* part_ml, int B, int Q,
+                    int Hq, int Hkv, int W, int bs, Pool pool, int window,
+                    float scale, int splits, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    switch (kv) {
+      case 0: return launch_span<T, T, D>(q, k, v, bt, row_start, row_len, out, B, Q, Hq, Hkv, W, bs, pool, window, scale, s);
+      case 1: return launch_span<T, int8_t, D>(q, k, v, bt, row_start, row_len, out, B, Q, Hq, Hkv, W, bs, pool, window, scale, s);
+      case 2: return launch_span<T, __nv_fp8_e4m3, D>(q, k, v, bt, row_start, row_len, out, B, Q, Hq, Hkv, W, bs, pool, window, scale, s);
+    }
+  } else {
+    switch (kv) {
+      case 0: return launch_span_tc<T, D>(q, k, v, bt, row_start, row_len, out, part_acc, part_ml, B, Q, Hq, Hkv, W, bs, pool, window, scale, splits, s);
+      case 1: return launch_span_tc<int8_t, D>(q, k, v, bt, row_start, row_len, out, part_acc, part_ml, B, Q, Hq, Hkv, W, bs, pool, window, scale, splits, s);
+      case 2: return launch_span_tc<__nv_fp8_e4m3, D>(q, k, v, bt, row_start, row_len, out, part_acc, part_ml, B, Q, Hq, Hkv, W, bs, pool, window, scale, splits, s);
+    }
   }
   return cudaErrorInvalidValue;
 }
@@ -383,7 +840,10 @@ cudaError_t span_kv(int kv, const void* q, const void* k, const void* v,
 // scales, else null).  window <= 0: no sliding window.  Strides are in
 // elements.  Returns the launch's cudaError_t (0 = ok; -1 for an
 // unsupported dtype/head_dim, which the Python wrapper rejects before
-// calling).
+// calling).  paged_span_launch with bf16 q splits each row's keys over
+// `splits` CTAs (1..16); with splits > 1, part_acc (f32 [splits, B, Hkv,
+// Q*G, D]) and part_ml (f32 [splits, B, Hkv, Q*G, 2]) are its workspace.
+// f32 q ignores splits and the workspace.
 extern "C" int paged_decode_launch(const void* q, const void* k, const void* v,
                                    const float* ks, const float* vs,
                                    const int* bt, const int* index, void* out,
@@ -405,18 +865,19 @@ extern "C" int paged_decode_launch(const void* q, const void* k, const void* v,
 extern "C" int paged_span_launch(const void* q, const void* k, const void* v,
                                  const float* ks, const float* vs,
                                  const int* bt, const int* row_start,
-                                 const int* row_len, void* out, int dtype,
-                                 int kv, int B, int Q, int Hq, int Hkv, int D,
-                                 int W, int bs, long long k_blk,
-                                 long long k_pos, long long k_head,
-                                 long long v_blk, long long v_pos,
-                                 long long v_head, long long ks_blk,
-                                 long long ks_pos, long long ks_head,
-                                 long long vs_blk, long long vs_pos,
-                                 long long vs_head, int window, float scale,
-                                 void* stream) {
+                                 const int* row_len, void* out, float* part_acc,
+                                 float* part_ml, int dtype, int kv, int B, int Q,
+                                 int Hq, int Hkv, int D, int W, int bs,
+                                 long long k_blk, long long k_pos,
+                                 long long k_head, long long v_blk,
+                                 long long v_pos, long long v_head,
+                                 long long ks_blk, long long ks_pos,
+                                 long long ks_head, long long vs_blk,
+                                 long long vs_pos, long long vs_head, int window,
+                                 float scale, int splits, void* stream) {
   const Pool pool{k_blk,  k_pos,  k_head,  v_blk,  v_pos,  v_head, ks,
                   vs,     ks_blk, ks_pos, ks_head, vs_blk, vs_pos, vs_head};
   REPRO_DISPATCH(dtype, D, span_kv, kv, q, k, v, bt, row_start, row_len, out,
-                 B, Q, Hq, Hkv, W, bs, pool, window, scale, (cudaStream_t)stream);
+                 part_acc, part_ml, B, Q, Hq, Hkv, W, bs, pool, window, scale,
+                 splits, (cudaStream_t)stream);
 }

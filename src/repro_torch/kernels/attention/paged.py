@@ -14,7 +14,10 @@ plain versions dequantize the gathered view to q's dtype.
 * :func:`paged_span_fwd` / :func:`paged_span_plain` — ragged rows: row
   ``b`` holds ``row_len[b]`` queries at positions ``row_start[b] + j``;
   query rows past ``row_len`` are garbage by contract (the CUDA kernel
-  writes zeros for a row with ``row_len == 0``).
+  writes zeros for a row with ``row_len == 0``).  With bf16 q the span
+  runs on the tensor cores, each row's visited keys split over the CTAs
+  that :func:`span_split_plan` counts from the shapes; f32 q runs the
+  CUDA-core body.
 
 The plain versions are the JAX package's XLA path (gather the row's
 blocks into a ``[W * bs]`` view, dequantized through the gathered scales
@@ -44,6 +47,9 @@ _KV_IDS = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _MAX_ROWS_PER_CTA = 16  # decode: kDecodeWarps * kDecodeRows in the source
 _STAGES = 4  # kStages in the source: K/V blocks staged per CTA
 _SMEM_LIMIT = 227 * 1024  # shared memory one CTA may use on Hopper
+SPAN_TILE_ROWS = 128  # kTcRows in the source: folded rows per tensor-core CTA
+MAX_SPLITS = 16  # key splits of one row (the merge's lanes hold <= 32)
+MIN_SPLIT_BLOCKS = 4  # table entries a split covers at the least
 
 
 # ----------------------------------------------------------------------
@@ -137,8 +143,8 @@ def _lib() -> ctypes.CDLL:
     lib.paged_decode_launch.argtypes = ([_P] * 8 + [_I] * 8 + [_L] * 12
                                         + [_I, _F, _P])
     lib.paged_decode_launch.restype = _I
-    lib.paged_span_launch.argtypes = ([_P] * 9 + [_I] * 9 + [_L] * 12
-                                      + [_I, _F, _P])
+    lib.paged_span_launch.argtypes = ([_P] * 11 + [_I] * 9 + [_L] * 12
+                                      + [_I, _F, _I, _P])
     lib.paged_span_launch.restype = _I
     return lib
 
@@ -149,15 +155,37 @@ def build_kernels() -> build.Built:
     return build.load(SOURCE)
 
 
+def span_split_plan(b: int, hkv: int, rows: int, w: int, sms: int):
+    """(row tiles, key splits) of the tensor-core span body for a batch of
+    ``b`` rows of ``rows`` folded query rows (Q*G) over ``w`` table
+    entries, on a card of ``sms`` SMs.  From the shapes alone (row_start
+    and row_len stay on the device): one CTA per (row, kv head, tile of
+    128 folded rows, split); splits are added until the CTAs fill the SMs
+    once, each split keeping at least ``MIN_SPLIT_BLOCKS`` table entries of
+    a full table.  The kernel divides each row's own visited range by the
+    split count, so a row's result depends on it only through f32
+    summation order."""
+    tiles = -(-rows // SPAN_TILE_ROWS)
+    splits = -(-sms // (b * hkv * tiles))
+    return tiles, max(1, min(splits, MAX_SPLITS, w // MIN_SPLIT_BLOCKS))
+
+
+def _span_tc_smem(bs: int, d: int, item: int, quantized: bool) -> int:
+    """Shared memory of the tensor-core span CTA (tc_smem_bytes in the
+    source): the 128-row q tile and the ring at the padded bf16 row of
+    d + 8, codes unpadded plus one converted bf16 K/V block when
+    quantized."""
+    ld, bs16 = d + 8, -(-bs // 16) * 16
+    q_tile = SPAN_TILE_ROWS * ld * 2
+    if quantized:
+        return q_tile + _STAGES * (2 * bs * d * item + 8 * bs) + 2 * bs16 * ld * 2
+    return q_tile + _STAGES * 2 * bs16 * ld * 2
+
+
 def _check(q, k_pages, v_pages, block_tables, rows: dict, k_scales, v_scales,
-           *, max_g=None):
-    if not q.is_cuda:
-        raise ValueError("the CUDA paged kernels take CUDA tensors")
-    dev = q.device
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables), *rows.items()):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+           *, max_g=None, span=False):
+    """Every argument check of the launchers; device-agnostic first, the
+    CUDA device last (so the CPU tests reach each check)."""
     if q.dtype not in _DTYPE_IDS:
         raise ValueError(f"dtype {q.dtype} unsupported (float32, bfloat16)")
     if k_pages.dtype != v_pages.dtype:
@@ -173,8 +201,9 @@ def _check(q, k_pages, v_pages, block_tables, rows: dict, k_scales, v_scales,
         raise ValueError(
             f"a {k_pages.dtype} pool takes "
             f"{'k_scales and v_scales' if quantized else 'no scales'}")
-    if q.dim() != 4 or not q.is_contiguous():
-        raise ValueError("q must be a contiguous [B, Q, Hq, D] tensor")
+    if q.dim() != 4 or not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("q must be a contiguous, 16-byte aligned "
+                         "[B, Q, Hq, D] tensor")
     b, _, hq, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} unsupported {HEAD_DIMS}")
@@ -185,21 +214,24 @@ def _check(q, k_pages, v_pages, block_tables, rows: dict, k_scales, v_scales,
     hkv, bs = k_pages.shape[2], k_pages.shape[1]
     if quantized:
         for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
-            if t.dtype != torch.float32 or t.device != dev \
+            if t.dtype != torch.float32 or t.device != q.device \
                     or t.shape != k_pages.shape[:3]:
                 raise ValueError(f"{name} must be float32 "
-                                 f"{list(k_pages.shape[:3])} on {dev}, got "
-                                 f"{t.dtype} {list(t.shape)} on {t.device}")
+                                 f"{list(k_pages.shape[:3])} on {q.device}, "
+                                 f"got {t.dtype} {list(t.shape)} on {t.device}")
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     if max_g is not None and hq // hkv > max_g:
         raise ValueError(f"GQA group {hq // hkv} > {max_g} rows per CTA")
     item = k_pages.element_size()
-    stage = 2 * bs * d * item + (2 * bs * 4 if quantized else 0)
-    if bs % 8 or _STAGES * stage > _SMEM_LIMIT:
+    if span and q.dtype == torch.bfloat16:
+        smem = _span_tc_smem(bs, d, item, quantized)
+    else:
+        smem = _STAGES * (2 * bs * d * item + (2 * bs * 4 if quantized else 0))
+    if bs % 8 or smem > _SMEM_LIMIT:
         raise ValueError(f"block_size {bs} must be a multiple of 8 and "
                          f"{_STAGES} staged K/V blocks of {bs} x {d} must fit "
-                         f"shared memory")
+                         f"shared memory ({smem} > {_SMEM_LIMIT} bytes)")
     chunk = 16 // item  # elements per 16-byte async copy
     for t in (k_pages, v_pages):
         if t.stride(3) != 1 or any(s % chunk for s in t.stride()[:3]) \
@@ -213,7 +245,18 @@ def _check(q, k_pages, v_pages, block_tables, rows: dict, k_scales, v_scales,
     for name, t in rows.items():
         if t.dtype != torch.int32 or t.shape != (b,) or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32 [{b}]")
+    if not q.is_cuda:
+        raise ValueError("the CUDA paged kernels take CUDA tensors")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_tables", block_tables), *rows.items()):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     return b, hq, hkv, d, block_tables.shape[1], bs
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _window(window):
@@ -255,20 +298,44 @@ def paged_decode_fwd(q, k_pages, v_pages, block_tables, index, *,
 
 
 def paged_span_fwd(q, k_pages, v_pages, block_tables, row_start, row_len, *,
-                   window: int | None = None, k_scales=None, v_scales=None):
+                   window: int | None = None, k_scales=None, v_scales=None,
+                   splits: int | None = None):
     """Launch the CUDA ragged-span kernel on the current stream.
-    q: [B, Q, Hq, D] -> [B, Q, Hq, D]."""
+    q: [B, Q, Hq, D] -> [B, Q, Hq, D].  bf16 q: ``splits`` key splits per
+    row (default: :func:`span_split_plan`; 1 writes the output from one
+    CTA per row tile, with no merge); f32 q takes no splits."""
+    window = _window(window)
+    if splits is not None and (not isinstance(splits, int)
+                               or not 1 <= splits <= MAX_SPLITS):
+        raise ValueError(f"splits={splits!r}: expected an int in "
+                         f"[1, {MAX_SPLITS}]")
+    if q.dtype != torch.bfloat16 and splits not in (None, 1):
+        raise ValueError(f"splits={splits}: the {q.dtype} span body does not "
+                         f"split keys")
     b, hq, hkv, d, w, bs = _check(q, k_pages, v_pages, block_tables,
                                   {"row_start": row_start, "row_len": row_len},
-                                  k_scales, v_scales)
+                                  k_scales, v_scales, span=True)
+    rows = q.shape[1] * (hq // hkv)
+    if q.dtype != torch.bfloat16:
+        splits = 1
+    elif splits is None:
+        splits = span_split_plan(b, hkv, rows, w, _sm_count(q.device.index))[1]
     kv, ks, vs, strides = _pool_args(k_pages, v_pages, k_scales, v_scales)
     out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if splits > 1:  # the merge's f32 workspace
+        part_acc = torch.empty(splits * b * hkv * rows * d, dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty(splits * b * hkv * rows * 2, dtype=torch.float32,
+                              device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().paged_span_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
         block_tables.data_ptr(), row_start.data_ptr(), row_len.data_ptr(),
-        out.data_ptr(), _DTYPE_IDS[q.dtype], kv, b, q.shape[1], hq, hkv, d, w,
-        bs, *strides, _window(window), 1.0 / math.sqrt(d), stream)
+        out.data_ptr(), 0 if part_acc is None else part_acc.data_ptr(),
+        0 if part_ml is None else part_ml.data_ptr(), _DTYPE_IDS[q.dtype], kv,
+        b, q.shape[1], hq, hkv, d, w, bs, *strides, window,
+        1.0 / math.sqrt(d), splits, stream)
     if rc != 0:
         raise RuntimeError(f"paged_span launch failed: CUDA error {rc}")
     return out

@@ -1,5 +1,6 @@
 """Torch port on the card: the CUDA paged kernels (native and quantized
 int8/fp8 pools) and the flash kernel against their plain torch versions,
+the paged-span bodies against the float64 attention oracle,
 the SSD scan kernel and its plain version against the float64 oracle,
 and the engines' kernel-vs-plain greedy invariant.
 
@@ -19,6 +20,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import quant  # noqa: E402
 from repro_torch.kernels.attention import flash, ops, paged  # noqa: E402
+from repro_torch.kernels.attention import ref as attn_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import scan as ssd_scan  # noqa: E402
@@ -79,6 +81,59 @@ def test_span_kernel_matches_plain(cuda_device, dtype, window):
     assert err.item() <= TOL[dtype]
     assert (out[2] == 0).all()  # row_len == 0: zeros, never NaN
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8", "fp8"])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("case", [
+    # q_len, d, w, nb, starts, lens: the main-path rows (+ a row_len == 0
+    # row), a block-unaligned start with a 5-token row (Q*G = 20), a
+    # 2560-token table (the key split at work), head dim 64
+    (32, 128, 34, 512, [192, 416, 0], [32, 17, 0]),
+    (5, 128, 34, 512, [203, 37, 0], [5, 3, 0]),
+    (32, 128, 160, 512, [2500, 1203], [32, 9]),
+    (32, 64, 34, 512, [192, 416, 0], [32, 17, 0]),
+], ids=["main", "unaligned-5", "long-table", "d64"])
+def test_span_tensor_core_body_holds_to_f64_oracle(cuda_device, kv_dtype,
+                                                   window, case):
+    """Kernel 2/2q with bf16 q (the tensor-core body), with the plan's key
+    splits and with one forced split, each within the stated check of the
+    float64 oracle on every valid query; the two differ by at most one
+    bf16 rounding (``ref.SPLIT_CHECK``); row_len == 0 rows are zeros."""
+    q_len, d, w, nb, starts, lens = case
+    q, kp, vp, bt, st, ln = _case(cuda_device, torch.bfloat16, b=len(starts),
+                                  q_len=q_len, starts=starts, lens=lens, d=d,
+                                  w=w, nb=nb)
+    sc = {}
+    if kv_dtype != "fp16":
+        kp, vp, sc = _quantize_pool(kp, vp, kv_dtype)
+    out = paged.paged_span_fwd(q, kp, vp, bt, st, ln, window=window, **sc)
+    one = paged.paged_span_fwd(q, kp, vp, bt, st, ln, window=window, splits=1,
+                               **sc)
+    want = attn_ref.paged_span_ref(q, kp, vp, bt, st, ln, window=window, **sc)
+    valid = attn_ref.span_valid(ln, q_len)
+    assert torch.isfinite(out).all()
+    assert attn_ref.check_ratio(out, want, valid=valid) <= 1.0
+    assert attn_ref.check_ratio(one, want, valid=valid) <= 1.0
+    assert attn_ref.check_ratio(out, one, *attn_ref.SPLIT_CHECK,
+                                valid=valid) <= 1.0
+    assert (out[ln == 0] == 0).all() and (one[ln == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8", "fp8"])
+def test_span_f32_body_holds_to_f64_oracle(cuda_device, kv_dtype):
+    """f32 q keeps the CUDA-core body, within the f32 check (1e-4, 1e-4)."""
+    q, kp, vp, bt, st, ln = _case(cuda_device, torch.float32, b=3, q_len=32,
+                                  starts=[192, 421, 0], lens=[32, 17, 0])
+    sc = {}
+    if kv_dtype != "fp16":
+        kp, vp, sc = _quantize_pool(kp, vp, kv_dtype)
+    out = paged.paged_span_fwd(q, kp, vp, bt, st, ln, window=100, **sc)
+    want = attn_ref.paged_span_ref(q, kp, vp, bt, st, ln, window=100, **sc)
+    assert attn_ref.check_ratio(out, want,
+                                valid=attn_ref.span_valid(ln, 32)) <= 1.0
 
 
 def _quantize_pool(kp, vp, kv_dtype):
