@@ -14,7 +14,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    the paged kernels) in bf16 and f32 — sliding-window, NULL-tail and
    ``row_len == 0`` cases for the paged kernels; causal, a prefix-hit
    tail at ``q_offset`` 256, a sliding window and ragged lengths (causal
-   and bidirectional) for the flash kernel; then its time (CUDA events,
+   and bidirectional) for the flash kernel (bf16 q on the tensor cores,
+   f32 q on the CUDA cores), each also held to the float64 attention
+   oracle (``kernels/attention/ref.py`` ``flash_ref``, ``check_ratio``
+   <= 1), as are the GQA groups 1, 8 and 12 of codeqwen / yi /
+   mistral-large, head dims 32, 64 and 256, a 2048-token prompt and
+   strided views; then its time (CUDA events,
    L2 flushed before each launch) beside the plain version's, one
    PyTorch library call computing the same function
    (``F.scaled_dot_product_attention`` — a yardstick only, the port never
@@ -35,9 +40,15 @@ Phases (each prints its own lines; any failure exits non-zero):
    splits, f32 q on the CUDA cores) against the float64 attention oracle
    (``kernels/attention/ref.py``) in 30 cases — native, int8 and fp8
    pools, window off and 100, the main-path rows, a block-unaligned
-   start with a 5-token row, a 2560-token table, head dim 64 — held to
+   start with a 5-token row, a 2560-token table, head dim 64 — and in 24
+   more at the GQA groups 1, 8 and 12 of codeqwen / yi / mistral-large
+   (native and int8 pools, window off and 100, the main rows and the
+   5-token row: one part-empty, two and three 128-row tiles), held to
    ``ref.check_ratio`` <= 1, a forced single split to the oracle and to
-   the split output within one bf16 ulp;
+   the split output within one bf16 ulp.  The decode bodies (kernels
+   1/1q) against the same oracle in 16 cases: the main path's 4 slots at
+   0, 17, 300 and 543, D 128 and 64, window off and 100, bf16 q over
+   native, int8 and fp8 pools and f32 q over a native pool;
 4. full-width granite-8b (36 layers, d_model 4096, bf16, random weights
    from a seed), one model object for both waves:
    a. through ``UnifiedServeEngine(device="cuda")``: 8 requests of
@@ -63,7 +74,7 @@ Phases (each prints its own lines; any failure exits non-zero):
       body and no plain path; the pool must hold 76,032 B/token (bf16:
       147,456); first tokens as in (a) at the per-dtype tolerance
       ``FIRST_TOKEN_TOL``; tok/s and the greedy token match against the
-      bf16 wave of the same engine; (c) and (d) then one profiled wave;
+      bf16 wave of the same engine; then one profiled wave each;
    f. full-width mamba2-370m (48 layers, d_model 1024, bf16, random
       weights from a seed) on the same stream through
       ``UnifiedServeEngine``, traced (segments flushed, merged into one
@@ -129,6 +140,8 @@ REPLACES = {"paged_decode": "src/repro/kernels/attention/paged.py:102",
             "paged_span_quant": "src/repro/kernels/attention/paged.py:158",
             "flash_attention": "src/repro/kernels/attention/flash.py:100",
             "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:76"}
+# configs whose GQA group (1, 8, 12) the span and flash oracle cases fold
+SPAN_GROUP_ARCHS = ("codeqwen1.5-7b", "yi-9b", "mistral-large-123b")
 # full-width granite-8b pool bytes per token: 36 layers x 8 kv heads x K,V
 # x (128 x 2 B) in bf16; x (128 x 1 B codes + one 4 B scale) quantized
 POOL_BYTES_PER_TOKEN = {"fp16": 147_456, "int8": 76_032, "fp8": 76_032}
@@ -137,6 +150,14 @@ POOL_BYTES_PER_TOKEN = {"fp16": 147_456, "int8": 76_032, "fp8": 76_032}
 def require(cond, msg):
     if not cond:
         raise SystemExit(f"[smoke] FAIL: {msg}")
+
+
+def _heads(arch):
+    """(q heads, kv heads) of a config."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg.num_heads, cfg.num_kv_heads
 
 
 def card_line() -> str:
@@ -461,6 +482,7 @@ def span_oracle_phase(torch, np):
     from repro_torch.kernels.attention import ref as aref
 
     rng = np.random.default_rng(7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [  # name, q_len, d, w, nb, starts, lens
         ("main rows", 32, 128, 34, 4096, [192, 416, 0], [32, 17, 0]),
         ("unaligned + 5-token row", 5, 128, 34, 4096, [203, 37, 0], [5, 3, 0]),
@@ -468,60 +490,136 @@ def span_oracle_phase(torch, np):
         ("head dim 64", 32, 64, 34, 4096, [192, 416, 0], [32, 17, 0]),
     ]
     worst, ratios, n = 0.0, {}, 0
-    for dt_name in ("bfloat16", "float32"):
+
+    def one_case(dt_name, kv_dtype, window, name, q_len, d, w, nb, starts,
+                 lens, *, hkv=8, g=4, rng=rng):
         dt = getattr(torch, dt_name)
+        q, kp, vp, bt, st, ln = _case(
+            torch, rng, dt, b=len(starts), q_len=q_len, hkv=hkv, g=g, d=d,
+            bs=16, w=w, nb=nb, starts=starts, lens=lens)
+        sc = {}
+        if kv_dtype != "fp16":
+            kp, ks = quant.kv_quantize(kp, kv_dtype)
+            vp, vs = quant.kv_quantize(vp, kv_dtype)
+            sc = {"k_scales": ks, "v_scales": vs}
+        out = paged.paged_span_fwd(q, kp, vp, bt, st, ln, window=window, **sc)
+        plain = paged.paged_span_plain(q, kp, vp, bt, st, ln, window=window,
+                                       **sc)
+        want = aref.paged_span_ref(q, kp, vp, bt, st, ln, window=window, **sc)
+        valid = aref.span_valid(ln, q_len)
+        r_k = aref.check_ratio(out, want, valid=valid)
+        r_p = aref.check_ratio(plain, want, valid=valid)
+        tiles, splits = paged.span_split_plan(len(starts), hkv, q_len * g, w,
+                                              sms)
+        if dt_name != "bfloat16":
+            splits = 1
+        r_1 = r_1k = 0.0
+        if splits > 1:
+            one = paged.paged_span_fwd(q, kp, vp, bt, st, ln, window=window,
+                                       splits=1, **sc)
+            r_1k = aref.check_ratio(one, want, valid=valid)
+            r_1 = aref.check_ratio(out, one, *aref.SPLIT_CHECK, valid=valid)
+            require((one[ln == 0] == 0).all().item(),
+                    "single split: row_len == 0 row not zeros")
+        torch.cuda.synchronize()
+        what = (f"paged_span {dt_name} q, {kv_dtype} pool, window={window}, "
+                f"{name}")
+        print(f"[smoke] {what}: oracle ratio kernel {r_k:.3f} (one split "
+              f"{r_1k:.3f}; plain {r_p:.3f}); {tiles} row tiles, {splits} key "
+              f"splits vs one: ratio {r_1:.3f} (one bf16 ulp)")
+        require(torch.isfinite(out).all().item(), f"{what}: non-finite")
+        require((out[ln == 0] == 0).all().item(),
+                f"{what}: row_len == 0 row not zeros")
+        require(max(r_k, r_1k) <= 1.0,
+                f"{what}: oracle ratio {r_k} / one split {r_1k}")
+        require(r_1 <= 1.0, f"{what}: split vs one split {r_1}")
+        return max(r_k, r_1k)
+
+    for dt_name in ("bfloat16", "float32"):
         for kv_dtype in ("fp16", "int8", "fp8"):
             for window in (None, 100):
                 for name, q_len, d, w, nb, starts, lens in cases:
                     if dt_name == "float32" and name != "main rows":
                         continue
-                    q, kp, vp, bt, st, ln = _case(
-                        torch, rng, dt, b=len(starts), q_len=q_len, hkv=8, g=4,
-                        d=d, bs=16, w=w, nb=nb, starts=starts, lens=lens)
-                    sc = {}
-                    if kv_dtype != "fp16":
-                        kp, ks = quant.kv_quantize(kp, kv_dtype)
-                        vp, vs = quant.kv_quantize(vp, kv_dtype)
-                        sc = {"k_scales": ks, "v_scales": vs}
-                    out = paged.paged_span_fwd(q, kp, vp, bt, st, ln,
-                                               window=window, **sc)
-                    plain = paged.paged_span_plain(q, kp, vp, bt, st, ln,
-                                                   window=window, **sc)
-                    want = aref.paged_span_ref(q, kp, vp, bt, st, ln,
-                                               window=window, **sc)
-                    valid = aref.span_valid(ln, q_len)
-                    r_k = aref.check_ratio(out, want, valid=valid)
-                    r_p = aref.check_ratio(plain, want, valid=valid)
-                    splits = (paged.span_split_plan(
-                        len(starts), 8, q_len * 4, w,
-                        torch.cuda.get_device_properties(0).multi_processor_count)[1]
-                        if dt_name == "bfloat16" else 1)
-                    r_1 = r_1k = 0.0
-                    if splits > 1:
-                        one = paged.paged_span_fwd(q, kp, vp, bt, st, ln,
-                                                   window=window, splits=1, **sc)
-                        r_1k = aref.check_ratio(one, want, valid=valid)
-                        r_1 = aref.check_ratio(out, one, *aref.SPLIT_CHECK,
-                                               valid=valid)
-                        require((one[ln == 0] == 0).all().item(),
-                                "single split: row_len == 0 row not zeros")
-                    torch.cuda.synchronize()
-                    what = (f"paged_span {dt_name} q, {kv_dtype} pool, window="
-                            f"{window}, {name}")
-                    print(f"[smoke] {what}: oracle ratio kernel {r_k:.3f} "
-                          f"(one split {r_1k:.3f}; plain {r_p:.3f}); {splits} "
-                          f"key splits vs one: ratio {r_1:.3f} (one bf16 ulp)")
-                    require(torch.isfinite(out).all().item(), f"{what}: non-finite")
-                    require((out[ln == 0] == 0).all().item(),
-                            f"{what}: row_len == 0 row not zeros")
-                    require(max(r_k, r_1k) <= 1.0,
-                            f"{what}: oracle ratio {r_k} / one split {r_1k}")
-                    require(r_1 <= 1.0, f"{what}: split vs one split {r_1}")
-                    worst, n = max(worst, r_k, r_1k), n + 1
+                    r = one_case(dt_name, kv_dtype, window, name, q_len, d, w,
+                                 nb, starts, lens)
+                    worst, n = max(worst, r), n + 1
                     if dt_name == "bfloat16" and window is None \
                             and name == "main rows":
-                        ratios[kv_dtype] = r_k
+                        ratios[kv_dtype] = r
     print(f"[smoke] paged_span oracle: {n} cases, every kernel ratio <= 1 "
+          f"(worst {worst:.3f})")
+    # G 1, 8 and 12 at the configs' own head counts: a 32-token chunk folds
+    # into 32, 256 and 384 rows (one part-empty tile, two and three tiles)
+    grng = np.random.default_rng(11)
+    rows = [("main rows", 32, [192, 416, 0], [32, 17, 0]),
+            ("5-token row", 5, [203, 37, 0], [5, 3, 0])]
+    by_g = {}
+    for arch in SPAN_GROUP_ARCHS:
+        hq, hkv = _heads(arch)
+        for kv_dtype in ("fp16", "int8"):
+            for window in (None, 100):
+                for name, q_len, starts, lens in rows:
+                    r = one_case("bfloat16", kv_dtype, window,
+                                 f"{name}, {arch} G {hq // hkv}", q_len, 128,
+                                 34, 4096, starts, lens, hkv=hkv,
+                                 g=hq // hkv, rng=grng)
+                    by_g[hq // hkv] = max(by_g.get(hq // hkv, 0.0), r)
+    print(f"[smoke] paged_span oracle at G 1 / 8 / 12: "
+          f"{2 * 2 * len(rows) * len(SPAN_GROUP_ARCHS)} cases, worst ratio "
+          f"by G {by_g}")
+    return ratios
+
+
+def decode_oracle_phase(torch, np):
+    """Kernels 1/1q against the float64 oracle (``ref.paged_attention_ref``)
+    at the main path's decode shapes: 4 slots at positions 0, 17, 300 and
+    543, Hq 32 / Hkv 8, block 16; D 128 and 64; window off and 100; bf16 q
+    over native, int8 and fp8 pools and f32 q over a native pool.  Each
+    case holds the kernel to ``ref.check_ratio`` <= 1 and prints the plain
+    version's ratio beside it (its bf16 softmax weights, and a quantized
+    view dequantized to bf16, are not held to the bound).  Returns the
+    kernel's ratio per pool at the timed shapes (bf16 q, D 128, window
+    off)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.attention import paged
+    from repro_torch.kernels.attention import ref as aref
+
+    rng = np.random.default_rng(12)
+    starts = [0, 17, 300, 543]
+    ratios, worst, n = {}, 0.0, 0
+    for d in (128, 64):
+        for window in (None, 100):
+            for dt_name, kv_dtype in (("bfloat16", "fp16"), ("bfloat16", "int8"),
+                                      ("bfloat16", "fp8"), ("float32", "fp16")):
+                q, kp, vp, bt, st, _ = _case(
+                    torch, rng, getattr(torch, dt_name), b=4, q_len=1, hkv=8,
+                    g=4, d=d, bs=16, w=34, nb=4096, starts=starts,
+                    lens=[1] * 4)
+                sc = {}
+                if kv_dtype != "fp16":
+                    kp, ks = quant.kv_quantize(kp, kv_dtype)
+                    vp, vs = quant.kv_quantize(vp, kv_dtype)
+                    sc = {"k_scales": ks, "v_scales": vs}
+                out = paged.paged_decode_fwd(q, kp, vp, bt, st, window=window,
+                                             **sc)
+                plain = paged.paged_decode_plain(q, kp, vp, bt, st,
+                                                 window=window, **sc)
+                want = aref.paged_attention_ref(q, kp, vp, bt, st,
+                                                window=window, **sc)
+                torch.cuda.synchronize()
+                r_k = aref.check_ratio(out, want)
+                r_p = aref.check_ratio(plain, want)
+                what = (f"paged_decode {dt_name} q, {kv_dtype} pool, D {d}, "
+                        f"window={window}")
+                print(f"[smoke] {what}: oracle ratio kernel {r_k:.3f} (plain "
+                      f"{r_p:.3f})")
+                require(torch.isfinite(out).all().item(), f"{what}: non-finite")
+                require(r_k <= 1.0, f"{what}: oracle ratio {r_k}")
+                worst, n = max(worst, r_k), n + 1
+                if dt_name == "bfloat16" and d == 128 and window is None:
+                    ratios[kv_dtype] = r_k
+    print(f"[smoke] paged_decode oracle: {n} cases, every kernel ratio <= 1 "
           f"(worst {worst:.3f})")
     return ratios
 
@@ -562,9 +660,15 @@ def flash_sdpa_yardstick(torch, q, k, v, *, q_offset):
 
 def flash_phase(torch, np):
     """The flash kernel against its plain version (bf16 and f32) at
-    granite-8b's head shapes, then its time at the main-path prefill
-    shapes: one 512-token prompt, and a 256-token tail at offset 256."""
+    granite-8b's head shapes and, on the same inputs, against the float64
+    oracle (``ref.flash_ref``, held to ``ref.check_ratio`` <= 1, the plain
+    version's ratio printed beside it); then the oracle alone at G 1, 8
+    and 12 (the configs' own head counts), head dims 32, 64 and 256, a
+    2048-token prompt and strided views; then its time at the main-path
+    prefill shapes: one 512-token prompt, and a 256-token tail at offset
+    256."""
     from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.attention import ref as aref
 
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
@@ -578,7 +682,19 @@ def flash_phase(torch, np):
         ("ragged tail", 77, 333, True, None, 256),
         ("ragged bidirectional", 200, 333, False, None, 0),
     ]
-    results = {}
+    results, worst = {}, {}
+
+    def oracle(what, dt_name, out, plain, q, k, v, kw):
+        want = aref.flash_ref(q, k, v, **kw)
+        r_k = aref.check_ratio(out, want)
+        r_p = aref.check_ratio(plain, want)
+        print(f"[smoke] flash_attention {dt_name} {what}: oracle ratio kernel "
+              f"{r_k:.3f} (plain {r_p:.3f})")
+        require(torch.isfinite(out).all().item(), f"flash {what} non-finite")
+        require(r_k <= 1.0, f"flash {dt_name} {what}: oracle ratio {r_k}")
+        worst[dt_name] = max(worst.get(dt_name, 0.0), r_k)
+        return r_k
+
     for dt_name in ("bfloat16", "float32"):
         dt = getattr(torch, dt_name)
         for name, sq, skv, causal, window, qoff in cases:
@@ -588,15 +704,15 @@ def flash_phase(torch, np):
             out = flash.flash_attention_fwd(q, k, v, **kw)
             ref = flash.flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
+            what = f"{name} (Sq {sq}, Skv {skv}, offset {qoff})"
+            r_k = oracle(what, dt_name, out, ref, q, k, v, kw)
             err = (out.float() - ref.float()).abs().max().item()
-            require(torch.isfinite(out).all().item(), f"flash {name} non-finite")
-            print(f"[smoke] flash_attention {dt_name} {name} (Sq {sq}, Skv "
-                  f"{skv}, offset {qoff}): max|kernel-plain| {err:.3e} "
-                  f"(tol {TOL[dt_name]})")
+            print(f"[smoke] flash_attention {dt_name} {what}: "
+                  f"max|kernel-plain| {err:.3e} (tol {TOL[dt_name]})")
             require(err <= TOL[dt_name], f"flash {dt_name} {name} err {err}")
             if dt_name != "bfloat16" or name not in ("causal", "prefix-hit tail"):
                 continue
-            r = dict(max_abs_err=err,
+            r = dict(max_abs_err=err, oracle_ratio=r_k,
                      ms=time_ms(torch, lambda: flash.flash_attention_fwd(
                          q, k, v, **kw), flush),
                      plain_ms=time_ms(torch, lambda: flash.flash_attention_plain(
@@ -610,6 +726,35 @@ def flash_phase(torch, np):
                   f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
             results.setdefault("flash_attention", r)  # the 512-token prompt
+    # the oracle alone: every GQA group the configs fold, the other head
+    # dims, a long prompt, and q/k/v as head slices of one fused buffer
+    extra = [(f"{arch} G {h // kv}", 512, h, kv, 128)
+             for arch, (h, kv) in zip(SPAN_GROUP_ARCHS,
+                                      map(_heads, SPAN_GROUP_ARCHS))]
+    extra += [("head dim 64", 512, 32, 8, 64), ("head dim 256", 512, 32, 8, 256),
+              ("2048-token prompt", 2048, 32, 8, 128),
+              ("head dim 32", 512, 32, 8, 32)]
+    for dt_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dt_name)
+        mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+        for name, s, h, kv, dh in extra:
+            q, k, v = mk(1, s, h, dh), mk(1, s, kv, dh), mk(1, s, kv, dh)
+            kw = dict(causal=True, window=None, q_offset=0)
+            out = flash.flash_attention_fwd(q, k, v)
+            plain = flash.flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            oracle(f"{name} (Sq {s}, Hq {h} / Hkv {kv}, D {dh})", dt_name,
+                   out, plain, q, k, v, kw)
+        fused = mk(2, 300, 48, 128)  # [B, S, q | k | v heads, D]
+        q, k, v = fused[:, :, :32], fused[:, :, 32:40], fused[:, :, 40:]
+        kw = dict(causal=True, window=100, q_offset=0)
+        out = flash.flash_attention_fwd(q, k, v, **kw)
+        plain = flash.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        oracle("strided views (B 2, Sq 300, window 100)", dt_name, out, plain,
+               q, k, v, kw)
+    print(f"[smoke] flash_attention oracle: {2 * (len(cases) + len(extra) + 1)} "
+          f"cases, every kernel ratio <= 1 (worst by dtype {worst})")
     del flush_buf
     return results
 
@@ -897,9 +1042,8 @@ def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
     """Waves (c)-(e): the phase-4 stream through the ``kind`` engine over a
     ``kv_dtype`` pool, same model object.  Counts zeroed just before the
     counted run and read just after; ``ref`` is the bf16 wave's greedy
-    streams of the same engine.  The unified waves (c), (d) then run one
-    profiled window; the legacy wave (e) is not profiled.  Returns the
-    quantized launch counts."""
+    streams of the same engine.  Each wave then runs one profiled
+    window.  Returns the quantized launch counts."""
     from repro_torch.kernels.attention import flash, ops, paged
     from repro_torch.serve.engine import ContinuousServeEngine
     from repro_torch.serve.step import UnifiedServeEngine
@@ -954,8 +1098,7 @@ def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
     check_first_tokens(torch, model, cfg, prompts,
                        [out[r.rid][0] for r in reqs], f"{what}, full width",
                        tol=FIRST_TOKEN_TOL[kv_dtype])
-    if kind == "unified":
-        profile_window(torch, eng, [p[:256] for p in prompts[:4]], gen, what)
+    profile_window(torch, eng, [p[:256] for p in prompts[:4]], gen, what)
     del eng
     torch.cuda.empty_cache()
     return {k: launches[k] for k in ("paged_decode_quant", "paged_span_quant")}
@@ -1308,6 +1451,9 @@ def main() -> int:
     ratios = timed("paged span oracle", span_oracle_phase)
     timings["paged_span"]["oracle_ratio"] = ratios["fp16"]
     timings["paged_span_quant"]["oracle_ratio"] = ratios["int8"]
+    ratios = timed("paged decode oracle", decode_oracle_phase)
+    timings["paged_decode"]["oracle_ratio"] = ratios["fp16"]
+    timings["paged_decode_quant"]["oracle_ratio"] = ratios["int8"]
     timings.update(timed("flash kernel", flash_phase))
     timings.update(timed("ssd scan kernel", ssd_phase))
     launches = timed("full width", full_width_phase)

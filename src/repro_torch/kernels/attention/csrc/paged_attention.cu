@@ -97,24 +97,18 @@ namespace {
 constexpr int kKeys = 8;     // keys scored together; block_size % kKeys == 0
 constexpr int kStages = 4;   // K/V blocks in flight per CTA
 
+using repro::allow_smem;
+using repro::as_u32;
+using repro::cp_async16;
+using repro::cp_async4;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 using repro::from_f;
+using repro::ldsm_x4;
+using repro::ldsm_x4_t;
+using repro::mma_bf16;
+using repro::split_bf16;
 using repro::to_f;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 struct Pool {
   long long k_blk, k_pos, k_head;  // element strides of the K leaf
@@ -361,40 +355,6 @@ __host__ __device__ constexpr size_t tc_smem_bytes(int bs) {
          kStages * tc_stage_bytes<P, D>(bs) +
          (kQuant<__nv_bfloat16, P>
               ? (size_t)2 * round16(bs) * (D + 8) * sizeof(__nv_bfloat16) : 0);
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldsm_x4(const void* p, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// (x, y) = hi + lo as two bf16 pairs, |x - hi - lo| <= 2^-16 |x|
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
 // One CTA per (key split, kv head x row tile, row).  Warp w owns folded
@@ -733,13 +693,6 @@ paged_span_merge_kernel(const float* __restrict__ part_acc,
   const long long orow = ((long long)(b * Q + r / G) * Hq + kh * G + r % G) * D;
 #pragma unroll
   for (int e = 0; e < EPT; ++e) out[orow + e * 32 + lane] = __float2bfloat16(o[e]);
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
 }
 
 template <typename T, typename P, int D>

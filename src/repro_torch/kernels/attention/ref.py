@@ -1,10 +1,11 @@
-"""Float64 oracle of the paged attention kernels, and the check a kernel's
-output is held to against it.
+"""Float64 oracle of the attention kernels (dense flash and paged), and
+the check a kernel's output is held to against it.
 
 The port's own copy of the JAX package's one dense reference
-(``repro.kernels.attention.ref.dense_ref``) and its paged adapters
-(``paged_attention_ref``, ``paged_span_ref``): one mask definition,
-and the adapters only gather a row's table into a dense view.  It
+(``repro.kernels.attention.ref.dense_ref``) and its adapters
+(``flash_ref``, the JAX ``attention_ref``; ``paged_attention_ref``,
+``paged_span_ref``): one mask definition, and the adapters only build
+positions or gather a row's table into a dense view.  It
 validates the CUDA bodies and their plain versions independently of
 either.  Inputs are torch tensors (computed on their device) or numpy
 arrays (computed on the CPU, returned as numpy); every value is upcast
@@ -50,15 +51,15 @@ def _i64(x, device):
     return torch.from_numpy(np.asarray(x, np.int64)).to(device)
 
 
-def dense_ref(q, k, v, q_pos, kv_pos, *, window=None):
-    """Dense causal GQA attention in float64 (the paged kernels' case of
-    the JAX ``dense_ref``).
+def dense_ref(q, k, v, q_pos, kv_pos, *, causal=True, window=None):
+    """Dense GQA attention in float64 (the JAX ``dense_ref`` without its
+    ``kv_valid``).
 
     q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D] (q head h reads kv head
     h // (Hq // Hkv)); q_pos: [Sq] or [B, Sq]; kv_pos: [Skv] or [B, Skv].
-    Mask: kv_pos <= q_pos and (no window or kv_pos > q_pos - window).  A
-    fully masked query returns zeros.  Returns float64 [B, Sq, Hq, D]
-    (numpy when q is numpy)."""
+    Mask: (not causal or kv_pos <= q_pos) and (no window or kv_pos >
+    q_pos - window).  A fully masked query returns zeros.  Returns float64
+    [B, Sq, Hq, D] (numpy when q is numpy)."""
     as_numpy = not isinstance(q, torch.Tensor)
     dev = torch.device("cpu") if as_numpy else q.device
     q, k, v = (_f64(x, dev) for x in (q, k, v))
@@ -66,7 +67,9 @@ def dense_ref(q, k, v, q_pos, kv_pos, *, window=None):
     skv, hkv = k.shape[1], k.shape[2]
     qp = _i64(q_pos, dev).broadcast_to((b, sq))
     kp = _i64(kv_pos, dev).broadcast_to((b, skv))
-    mask = kp[:, None, :] <= qp[:, :, None]  # [B, Sq, Skv]
+    mask = torch.ones((b, sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kp[:, None, :] <= qp[:, :, None]
     if window is not None:
         mask &= kp[:, None, :] > qp[:, :, None] - window
     qg = q.reshape(b, sq, hkv, hq // hkv, d)
@@ -78,6 +81,15 @@ def dense_ref(q, k, v, q_pos, kv_pos, *, window=None):
     p = p / p.sum(dim=-1, keepdim=True).clamp(min=np.finfo(np.float64).tiny)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v).reshape(b, sq, hq, d)
     return out.numpy() if as_numpy else out
+
+
+def flash_ref(q, k, v, *, causal=True, window=None, q_offset=0):
+    """Dense-prefill adapter: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D]; query
+    i sits at position q_offset + i, key j at j.  Returns float64."""
+    dev = q.device if isinstance(q, torch.Tensor) else torch.device("cpu")
+    return dense_ref(q, k, v, q_offset + torch.arange(q.shape[1], device=dev),
+                     torch.arange(k.shape[1], device=dev), causal=causal,
+                     window=window)
 
 
 def _gathered(pages, scales, block_tables, dev):

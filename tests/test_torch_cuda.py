@@ -1,6 +1,7 @@
 """Torch port on the card: the CUDA paged kernels (native and quantized
 int8/fp8 pools) and the flash kernel against their plain torch versions,
-the paged-span bodies against the float64 attention oracle,
+the paged decode and span bodies and the flash kernel against the float64
+attention oracle (span at GQA groups 1, 4, 8 and 12),
 the SSD scan kernel and its plain version against the float64 oracle,
 and the engines' kernel-vs-plain greedy invariant.
 
@@ -121,6 +122,65 @@ def test_span_tensor_core_body_holds_to_f64_oracle(cuda_device, kv_dtype,
     assert (out[ln == 0] == 0).all() and (one[ln == 0] == 0).all()
 
 
+# configs whose GQA group the oracle cases fold: (q heads, kv heads)
+GROUPS = {"codeqwen-G1": (32, 32), "yi-G8": (32, 4), "mistral-large-G12": (96, 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", list(GROUPS.values()), ids=list(GROUPS))
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("case", [
+    (32, [192, 416, 0], [32, 17, 0]), (5, [203, 37, 0], [5, 3, 0]),
+], ids=["main", "5-token"])
+def test_span_tensor_core_body_holds_to_f64_oracle_at_group(
+        cuda_device, heads, kv_dtype, window, case):
+    """Kernel 2/2q with bf16 q at G 1 (32 folded rows: 6 of 8 warps idle),
+    8 and 12 (256 and 384 rows: two and three row tiles), the plan's splits
+    and one forced split each within the check of the f64 oracle."""
+    (hq, hkv), (q_len, starts, lens) = heads, case
+    q, kp, vp, bt, st, ln = _case(cuda_device, torch.bfloat16, b=3,
+                                  q_len=q_len, starts=starts, lens=lens,
+                                  hkv=hkv, g=hq // hkv)
+    sc = {}
+    if kv_dtype != "fp16":
+        kp, vp, sc = _quantize_pool(kp, vp, kv_dtype)
+    out = paged.paged_span_fwd(q, kp, vp, bt, st, ln, window=window, **sc)
+    one = paged.paged_span_fwd(q, kp, vp, bt, st, ln, window=window, splits=1,
+                               **sc)
+    want = attn_ref.paged_span_ref(q, kp, vp, bt, st, ln, window=window, **sc)
+    valid = attn_ref.span_valid(ln, q_len)
+    assert torch.isfinite(out).all()
+    assert attn_ref.check_ratio(out, want, valid=valid) <= 1.0
+    assert attn_ref.check_ratio(one, want, valid=valid) <= 1.0
+    assert attn_ref.check_ratio(out, one, *attn_ref.SPLIT_CHECK,
+                                valid=valid) <= 1.0
+    assert (out[ln == 0] == 0).all() and (one[ln == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("dtype,kv_dtype", [
+    (torch.bfloat16, "fp16"), (torch.bfloat16, "int8"),
+    (torch.bfloat16, "fp8"), (torch.float32, "fp16"),
+], ids=["bf16", "bf16-int8", "bf16-fp8", "f32"])
+def test_decode_kernel_holds_to_f64_oracle(cuda_device, d, window, dtype,
+                                           kv_dtype):
+    """Kernel 1/1q at the main path's slots (0, 17, 300, 543) within the
+    stated check of the float64 oracle (bf16 (2^-8, 1e-3), f32 (1e-4,
+    1e-4))."""
+    q, kp, vp, bt, idx, _ = _case(cuda_device, dtype, b=4, q_len=1,
+                                  starts=[0, 17, 300, 543], lens=[1] * 4, d=d)
+    sc = {}
+    if kv_dtype != "fp16":
+        kp, vp, sc = _quantize_pool(kp, vp, kv_dtype)
+    out = paged.paged_decode_fwd(q, kp, vp, bt, idx, window=window, **sc)
+    want = attn_ref.paged_attention_ref(q, kp, vp, bt, idx, window=window, **sc)
+    assert torch.isfinite(out).all()
+    assert attn_ref.check_ratio(out, want) <= 1.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", ["fp16", "int8", "fp8"])
 def test_span_f32_body_holds_to_f64_oracle(cuda_device, kv_dtype):
@@ -210,9 +270,59 @@ def test_flash_kernel_reads_strided_views(cuda_device):
     """q/k/v as head slices of one fused [B, S, H, D] buffer: read in place."""
     x = torch.randn(1, 96, 48, 128, device=cuda_device)
     q, k, v = x[:, :, :32], x[:, :, 32:40], x[:, :, 40:]
-    torch.testing.assert_close(flash.flash_attention_fwd(q, k, v),
-                               flash.flash_attention_plain(q, k, v),
+    out = flash.flash_attention_fwd(q, k, v)
+    torch.testing.assert_close(out, flash.flash_attention_plain(q, k, v),
                                atol=TOL[torch.float32], rtol=0)
+    assert attn_ref.check_ratio(out, attn_ref.flash_ref(q, k, v)) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # b, sq, skv, hq, hkv, d, causal, window, q_offset: chip_smoke.py's six
+    # cases at granite-8b's heads, one query, the GQA groups 1, 8 and 12
+    # of codeqwen / yi / mistral-large, head dims 32, 64 and 256, a
+    # 2048-token prompt
+    (1, 512, 512, 32, 8, 128, True, None, 0),
+    (1, 256, 512, 32, 8, 128, True, None, 256),
+    (1, 512, 512, 32, 8, 128, True, 100, 0),
+    (1, 333, 333, 32, 8, 128, True, None, 0),
+    (1, 77, 333, 32, 8, 128, True, None, 256),
+    (1, 200, 333, 32, 8, 128, False, None, 0),
+    (2, 1, 40, 32, 8, 128, True, None, 39),
+    (1, 512, 512, 32, 32, 128, True, None, 0),
+    (1, 512, 512, 32, 4, 128, True, None, 0),
+    (1, 512, 512, 96, 8, 128, True, None, 0),
+    (1, 512, 512, 32, 8, 32, True, None, 0),
+    (1, 512, 512, 32, 8, 64, True, None, 0),
+    (1, 512, 512, 32, 8, 256, True, None, 0),
+    (1, 2048, 2048, 32, 8, 128, True, None, 0),
+], ids=["prompt", "tail", "window", "ragged", "ragged-tail", "bidirectional",
+        "one-query", "G1", "G8", "G12", "d32", "d64", "d256", "2048"])
+def test_flash_kernel_holds_to_f64_oracle(cuda_device, dtype, case):
+    """Kernel 3 within the stated check of the float64 oracle (bf16 (2^-8,
+    1e-3), f32 (1e-4, 1e-4)) on every query; out in q's dtype."""
+    b, sq, skv, hq, hkv, d, causal, window, q_offset = case
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+    q, k, v = mk(b, sq, hq, d), mk(b, skv, hkv, d), mk(b, skv, hkv, d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = flash.flash_attention_fwd(q, k, v, **kw)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert torch.isfinite(out).all()
+    assert attn_ref.check_ratio(out, attn_ref.flash_ref(q, k, v, **kw)) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_holds_strided_views_to_f64_oracle(cuda_device, dtype):
+    """q/k/v as head slices of one fused bf16 or f32 buffer, windowed."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(2, 300, 48, 128, generator=gen, device=cuda_device).to(dtype)
+    q, k, v = x[:, :, :32], x[:, :, 32:40], x[:, :, 40:]
+    out = flash.flash_attention_fwd(q, k, v, window=100)
+    want = attn_ref.flash_ref(q, k, v, window=100)
+    assert attn_ref.check_ratio(out, want) <= 1.0
 
 
 @pytest.mark.cuda
