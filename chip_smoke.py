@@ -46,9 +46,16 @@ Phases (each prints its own lines; any failure exits non-zero):
    5-token row: one part-empty, two and three 128-row tiles), held to
    ``ref.check_ratio`` <= 1, a forced single split to the oracle and to
    the split output within one bf16 ulp.  The decode bodies (kernels
-   1/1q) against the same oracle in 16 cases: the main path's 4 slots at
-   0, 17, 300 and 543, D 128 and 64, window off and 100, bf16 q over
-   native, int8 and fp8 pools and f32 q over a native pool;
+   1/1q: 4 warps that divide each block's keys, key splits on the span
+   body's merge) against the same oracle in 16 cases at the main path's
+   4 slots at 0, 17, 300 and 543 (D 128 and 64, window off and 100, bf16
+   q over native, int8 and fp8 pools and f32 q over a native pool) and in
+   28 more (bf16 q, native and int8 pools, window off and 100): G 1, 8, 12
+   and 16 (D 256) at the head counts of codeqwen / yi / mistral-large /
+   recurrentgemma, a 2560-token slot, 64 slots and a slot at position 0,
+   each with the plan's splits and one forced split; the timed decode
+   cases also print the forced single split's time, and the build prints
+   ptxas's registers and spill stores of every decode instantiation;
 4. full-width granite-8b (36 layers, d_model 4096, bf16, random weights
    from a seed), one model object for both waves:
    a. through ``UnifiedServeEngine(device="cuda")``: 8 requests of
@@ -168,6 +175,36 @@ def card_line() -> str:
         f"nvidia-smi failed: {out.stderr.strip()}"
 
 
+def ptxas_rows(log: str, kernel: str):
+    """[(template arguments, registers, spill store bytes)] of every
+    instantiation of ``kernel`` in an ``nvcc -Xptxas=-v`` log."""
+    rows, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            if kernel in name:
+                rows.append([name, int(m.group(1)), spill])
+            name = None
+    try:  # demangle to the template arguments, e.g. <__nv_bfloat16, signed char, 128>
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               timeout=30).stdout.splitlines()
+        for r, full in zip(rows, names):
+            m = re.search(kernel + r"(<[^>]*>)", full)
+            r[0] = m.group(1) if m else full
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [tuple(r) for r in rows]
+
+
 # ----------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ----------------------------------------------------------------------
@@ -227,6 +264,10 @@ def bound_ms(dtype_name, q, kp, bt, starts, lens, window, *, g,
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _sms(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def time_ms(torch, fn, flush, iters=20):
@@ -306,6 +347,12 @@ def kernel_phase(torch, np):
                 results["paged_decode"]["bound_ms"], \
                     results["paged_decode"]["bound_by"] = bound_ms(
                         dt_name, q, kp, bt, dec_starts, [1] * 4, None, g=4)
+                one = time_ms(torch, lambda: paged.paged_decode_fwd(
+                    q, kp, vp, bt, st, splits=1), flush)
+                print(f"[smoke] paged_decode bf16 main shapes with one key "
+                      f"split (no merge): kernel {one:.4f} ms; the plan's "
+                      f"{paged.decode_split_plan(4, 8, 34, _sms(torch))} "
+                      f"splits {results['paged_decode']['ms']:.4f} ms")
             # span: two 32-token chunk rows (one short tail chunk) + a
             # row_len == 0 row, as the unified step's chunk sub-batch
             starts, lens = [192, 416, 0], [32, 17, 0]
@@ -417,6 +464,11 @@ def quant_kernel_phase(torch, np):
                                        None),
                         bound_ms(dt_name, q, kc, bt, dec_starts, [1] * 4,
                                  None, g=4, quantized=True))
+                    one = time_ms(torch, lambda: paged.paged_decode_fwd(
+                        q, kc, vc, bt, st, splits=1, **sc), flush)
+                    print(f"[smoke] paged_decode_quant {kv_dtype} pool, bf16 "
+                          f"q, main shapes with one key split (no merge): "
+                          f"kernel {one:.4f} ms")
                 starts, lens = [192, 416, 0], [32, 17, 0]
                 q, kp, vp, bt, st, ln = _case(torch, rng, dt, b=3, q_len=32,
                                               starts=starts, lens=lens,
@@ -482,7 +534,7 @@ def span_oracle_phase(torch, np):
     from repro_torch.kernels.attention import ref as aref
 
     rng = np.random.default_rng(7)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = _sms(torch)
     cases = [  # name, q_len, d, w, nb, starts, lens
         ("main rows", 32, 128, 34, 4096, [192, 416, 0], [32, 17, 0]),
         ("unaligned + 5-token row", 5, 128, 34, 4096, [203, 37, 0], [5, 3, 0]),
@@ -572,55 +624,90 @@ def span_oracle_phase(torch, np):
 
 
 def decode_oracle_phase(torch, np):
-    """Kernels 1/1q against the float64 oracle (``ref.paged_attention_ref``)
-    at the main path's decode shapes: 4 slots at positions 0, 17, 300 and
+    """Kernels 1/1q against the float64 oracle (``ref.paged_attention_ref``):
+    at the main path's decode shapes (4 slots at positions 0, 17, 300 and
     543, Hq 32 / Hkv 8, block 16; D 128 and 64; window off and 100; bf16 q
-    over native, int8 and fp8 pools and f32 q over a native pool.  Each
-    case holds the kernel to ``ref.check_ratio`` <= 1 and prints the plain
-    version's ratio beside it (its bf16 softmax weights, and a quantized
-    view dequantized to bf16, are not held to the bound).  Returns the
-    kernel's ratio per pool at the timed shapes (bf16 q, D 128, window
-    off)."""
+    over native, int8 and fp8 pools and f32 q over a native pool), and, bf16
+    q over native and int8 pools with window off and 100, at the GQA groups
+    of codeqwen / yi / mistral-large / recurrentgemma (G 1, 8, 12; G 16 at
+    D 256, the largest the launcher takes) at their own head counts, a
+    2560-token slot (the plan's 16 splits; window 100 leaves most without
+    a key), 64 slots (one split, no merge) and a slot at position 0.  Each
+    case holds the kernel with the plan's key splits, and a forced single
+    split, to ``ref.check_ratio`` <= 1 and the two to each other within one
+    bf16 ulp (``ref.SPLIT_CHECK``), and prints the plain version's ratio
+    beside them (its bf16 softmax weights, and a quantized view dequantized
+    to bf16, are not held to the bound).  Returns the kernel's ratio per
+    pool at the timed shapes (bf16 q, D 128, window off)."""
+    from repro_torch.configs import get_config
     from repro_torch.core import quant
     from repro_torch.kernels.attention import paged
     from repro_torch.kernels.attention import ref as aref
 
     rng = np.random.default_rng(12)
-    starts = [0, 17, 300, 543]
+    sms = _sms(torch)
     ratios, worst, n = {}, 0.0, 0
+
+    def one_case(dt_name, kv_dtype, window, what, *, starts, hkv=8, g=4,
+                 d=128, w=34, nb=4096):
+        q, kp, vp, bt, st, _ = _case(
+            torch, rng, getattr(torch, dt_name), b=len(starts), q_len=1,
+            hkv=hkv, g=g, d=d, bs=16, w=w, nb=nb, starts=starts,
+            lens=[1] * len(starts))
+        sc = {}
+        if kv_dtype != "fp16":
+            kp, ks = quant.kv_quantize(kp, kv_dtype)
+            vp, vs = quant.kv_quantize(vp, kv_dtype)
+            sc = {"k_scales": ks, "v_scales": vs}
+        out = paged.paged_decode_fwd(q, kp, vp, bt, st, window=window, **sc)
+        one = paged.paged_decode_fwd(q, kp, vp, bt, st, window=window,
+                                     splits=1, **sc)
+        plain = paged.paged_decode_plain(q, kp, vp, bt, st, window=window,
+                                         **sc)
+        want = aref.paged_attention_ref(q, kp, vp, bt, st, window=window, **sc)
+        torch.cuda.synchronize()
+        r_k, r_1k, r_p = (aref.check_ratio(x, want) for x in (out, one, plain))
+        r_1 = aref.check_ratio(out, one, *aref.SPLIT_CHECK)
+        splits = paged.decode_split_plan(len(starts), hkv, w, sms)
+        what = (f"paged_decode {dt_name} q, {kv_dtype} pool, {what}, "
+                f"window={window}")
+        print(f"[smoke] {what}: oracle ratio kernel {r_k:.3f} (one split "
+              f"{r_1k:.3f}; plain {r_p:.3f}); {splits} key splits vs one: "
+              f"ratio {r_1:.3f} (one bf16 ulp)")
+        require(torch.isfinite(out).all().item(), f"{what}: non-finite")
+        require(max(r_k, r_1k) <= 1.0,
+                f"{what}: oracle ratio {r_k} / one split {r_1k}")
+        require(r_1 <= 1.0, f"{what}: split vs one split {r_1}")
+        return max(r_k, r_1k)
+
     for d in (128, 64):
         for window in (None, 100):
             for dt_name, kv_dtype in (("bfloat16", "fp16"), ("bfloat16", "int8"),
                                       ("bfloat16", "fp8"), ("float32", "fp16")):
-                q, kp, vp, bt, st, _ = _case(
-                    torch, rng, getattr(torch, dt_name), b=4, q_len=1, hkv=8,
-                    g=4, d=d, bs=16, w=34, nb=4096, starts=starts,
-                    lens=[1] * 4)
-                sc = {}
-                if kv_dtype != "fp16":
-                    kp, ks = quant.kv_quantize(kp, kv_dtype)
-                    vp, vs = quant.kv_quantize(vp, kv_dtype)
-                    sc = {"k_scales": ks, "v_scales": vs}
-                out = paged.paged_decode_fwd(q, kp, vp, bt, st, window=window,
-                                             **sc)
-                plain = paged.paged_decode_plain(q, kp, vp, bt, st,
-                                                 window=window, **sc)
-                want = aref.paged_attention_ref(q, kp, vp, bt, st,
-                                                window=window, **sc)
-                torch.cuda.synchronize()
-                r_k = aref.check_ratio(out, want)
-                r_p = aref.check_ratio(plain, want)
-                what = (f"paged_decode {dt_name} q, {kv_dtype} pool, D {d}, "
-                        f"window={window}")
-                print(f"[smoke] {what}: oracle ratio kernel {r_k:.3f} (plain "
-                      f"{r_p:.3f})")
-                require(torch.isfinite(out).all().item(), f"{what}: non-finite")
-                require(r_k <= 1.0, f"{what}: oracle ratio {r_k}")
-                worst, n = max(worst, r_k), n + 1
+                r = one_case(dt_name, kv_dtype, window, f"main slots, D {d}",
+                             starts=[0, 17, 300, 543], d=d)
+                worst, n = max(worst, r), n + 1
                 if dt_name == "bfloat16" and d == 128 and window is None:
-                    ratios[kv_dtype] = r_k
-    print(f"[smoke] paged_decode oracle: {n} cases, every kernel ratio <= 1 "
-          f"(worst {worst:.3f})")
+                    ratios[kv_dtype] = r
+    print(f"[smoke] paged_decode oracle at the main slots: {n} cases, every "
+          f"kernel ratio <= 1 (worst {worst:.3f})")
+    cases = [(f"{arch} G {c.num_heads // c.num_kv_heads}",
+              dict(starts=[0, 17, 300, 543], hkv=c.num_kv_heads,
+                   g=c.num_heads // c.num_kv_heads, d=c.head_dim))
+             for arch in (*SPAN_GROUP_ARCHS, "recurrentgemma-9b")
+             for c in [get_config(arch)]]
+    cases += [("a 2560-token slot", dict(starts=[2559], w=160, nb=1024)),
+              ("64 slots", dict(starts=[(37 * i) % 544 for i in range(64)])),
+              ("a slot at position 0", dict(starts=[0]))]
+    worst, m = 0.0, 0
+    for kv_dtype in ("fp16", "int8"):
+        for window in (None, 100):
+            for what, kw in cases:
+                worst, m = max(worst, one_case("bfloat16", kv_dtype, window,
+                                               what, **kw)), m + 1
+    print(f"[smoke] paged_decode oracle at G 1 / 8 / 12 / 16, a long slot, 64 "
+          f"slots, position 0: {m} cases, every kernel ratio <= 1 (worst "
+          f"{worst:.3f})")
     return ratios
 
 
@@ -1232,12 +1319,11 @@ def profile_window(torch, eng, prompts, gen, label):
     if not kern or busy_ms <= 0:
         print(f"[smoke] {label} profile: no device time recorded (not measured)")
         return None
-    fams = dict.fromkeys(("flash", "paged_decode", "paged_span", "ssd_scan",
-                          "gemm", "other"), 0.0)
+    named = ("flash", "paged_decode", "paged_span", "paged_merge", "ssd_scan")
+    fams = dict.fromkeys((*named, "gemm", "other"), 0.0)
     for e in kern:
         n = e.key.lower()
-        fam = next((f for f in ("flash", "paged_decode", "paged_span",
-                                "ssd_scan") if f in n), None) or (
+        fam = next((f for f in named if f in n), None) or (
             "gemm" if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet"))
             else "other")
         fams[fam] += e.self_device_time_total / 1e3
@@ -1436,6 +1522,9 @@ def main() -> int:
               f"ptxas: {len(regs)} kernels, {min(regs, default=0)}-"
               f"{max(regs, default=0)} registers, {len(spills)} with spill "
               f"stores (max {max(spills, default=0)} bytes)")
+        for args, n_regs, spill in ptxas_rows(built.log, "paged_decode_kernel"):
+            print(f"[smoke] ptxas paged_decode_kernel{args}: {n_regs} "
+                  f"registers, {spill} bytes spill stores")
     print(f"[smoke] build phase {time.perf_counter() - t0:.1f}s (parallel nvcc)")
 
     phase_s = {}

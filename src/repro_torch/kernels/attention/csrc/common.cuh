@@ -2,9 +2,9 @@
 // for the two dtypes the kernels take (and the quantized KV pool's int8 /
 // fp8 e4m3 codes, read only); the cp.async copies, the ldmatrix loads,
 // the bf16 mma.sync and the hi/lo bf16 split of the tensor-core bodies
-// (paged span, flash); the dynamic shared-memory opt-in of a launcher; and
-// the dtype x head_dim dispatch of a templated launcher from a plain C
-// entry point.
+// (paged span, flash); the SFU's exp2; programmatic dependent launch; the
+// dynamic shared-memory opt-in of a launcher; and the dtype x head_dim
+// dispatch of a templated launcher from a plain C entry point.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,6 +81,24 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = as_u32(h);
   lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// 2^x on the SFU: ex2.approx.ftz, ~2^-22 relative error, 2^-inf = 0 (a
+// result below 2^-126 flushes to 0: a weight that adds nothing to l)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// programmatic dependent launch (sm_90): a grid lets the kernel launched
+// after it with programmatic stream serialization be scheduled early, and
+// that kernel waits for the earlier grid's completion and memory
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB

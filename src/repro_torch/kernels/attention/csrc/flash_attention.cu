@@ -97,6 +97,7 @@ using repro::allow_smem;
 using repro::cp_async16;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
+using repro::fast_exp2;
 using repro::from_f;
 using repro::ldsm_x4;
 using repro::ldsm_x4_t;
@@ -295,14 +296,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int kTcWarps = 4;
 constexpr int kTcRows = kTcWarps * 16;  // folded rows per CTA: one m16 tile a warp
 constexpr int kTcStages = 2;            // K/V tiles in the cp.async ring
-
-// 2^x on the SFU: ex2.approx.ftz, ~2^-22 relative error, 2^-inf = 0 (a
-// result below 2^-126 flushes to 0: a weight that adds nothing to l)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int D>
 struct TcTile {

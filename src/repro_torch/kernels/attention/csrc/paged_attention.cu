@@ -47,30 +47,40 @@
 //     (p * (v * vs) == (p * vs) * v): one multiply per key, not per
 //     element.  fp8 codes convert through the hardware e4m3 cvt.
 //
-// Three bodies, chosen statically by q's dtype and the call:
-//   * decode (f32 and bf16 q) and span with f32 q: attend_rows, on the
-//     CUDA cores.  One CTA per (slot|row, kv head[, tile of 16 folded
-//     rows]); each warp keeps the online softmax of its rows in registers,
-//     a lane owning D/32 head dims, and scores 8 keys at a time so their
-//     warp reductions overlap.  q is scaled by 1/sqrt(D) in f32.  f32 q
-//     stays here because the tensor cores would round its inputs (TF32)
+// Three bodies, chosen statically by q's dtype and the call; the key
+// splits of decode and of the bf16 span share split_range (a row's
+// visited table range cut into `splits` contiguous parts, one CTA each,
+// grid x, so a batch of a few rows still fills the 132 SMs) and one merge,
+// paged_merge_kernel: each split writes its f32 (m, l, acc), in log2
+// units, to a workspace, and the merge rescales and sums them; with one
+// split the CTA writes the output itself.  The host plans
+// (kernels/attention/paged.py: decode_split_plan, span_split_plan) pick
+// the count from the shapes alone.
+//   * decode (f32 and bf16 q): paged_decode_kernel, on the CUDA cores.
+//     One CTA per (key split, kv head, slot), 4 warps that divide each
+//     staged block's keys among themselves (G <= 4; a larger G also
+//     splits the rows, 4 a warp), so a K/V element is read from shared
+//     memory and converted once per CTA, not once per q head.  A lane
+//     owns D/32 consecutive head dims of its warp's 4 rows; a pass scores
+//     4 rows x 4 keys, sums the 16 dot products over the warp in 16
+//     shuffles (a transposed reduction) and gathers the 16 weights back
+//     for P.V; the warps' online softmax states meet in shared memory.
+//   * span with f32 q: attend_rows, on the CUDA cores.  One CTA per
+//     (row, kv head, tile of 16 folded rows); each warp keeps the online
+//     softmax of its rows in registers, a lane owning D/32 head dims, and
+//     scores 8 keys at a time so their warp reductions overlap.  q is
+//     scaled by 1/sqrt(D) in f32.  f32 q stays on the CUDA cores (span
+//     and decode) because the tensor cores would round its inputs (TF32)
 //     past the f32 check.
 //   * span with bf16 q: paged_span_tc_kernel, on the tensor cores
 //     (mma.sync.m16n8k16, bf16 in, f32 accumulate).
 //       - One CTA covers up to 128 folded rows (8 warps x one 16-row m
-//         tile) of a (row, kv head): the main path's 32-token chunk at
-//         G = 4 is exactly 128 rows, so each attended block is staged
-//         once per (row, kv head, key split), not once per 16 rows.  A
-//         ragged Q*G masks its tail rows and reads nothing past q; a
-//         larger Q*G takes ceil(Q*G / 128) row tiles, each staging the
-//         blocks.
-//       - The row's visited table range is split into `splits`
-//         contiguous parts, one CTA each (grid x), so a batch of a few
-//         rows still fills the 132 SMs.  Each split writes its f32
-//         (m, l, acc) to a workspace and paged_span_merge_kernel rescales
-//         and sums them; with one split the CTA writes the output itself.
-//         The host plan (kernels/attention/paged.py: span_split_plan)
-//         picks the count from the shapes alone.
+//         tile) of a (row, kv head, key split): the main path's 32-token
+//         chunk at G = 4 is exactly 128 rows, so each attended block is
+//         staged once per (row, kv head, key split), not once per 16
+//         rows.  A ragged Q*G masks its tail rows and reads nothing past
+//         q; a larger Q*G takes ceil(Q*G / 128) row tiles, each staging
+//         the blocks.
 //       - S = Q.K^T from bf16 fragments (ldmatrix from padded shared
 //         tiles, exact products) into f32; 1/sqrt(D) (times log2 e, for
 //         exp2) and the K scale multiply the f32 score, never a bf16 q.
@@ -80,8 +90,8 @@
 //       - Quantized pools: each staged block's codes are converted to
 //         bf16 in shared memory (exact for int8 and e4m3) before the
 //         same products.
-// Not yet: split-K for decode (only B*Hkv CTAs), wgmma and TMA, one CTA
-// (or a cluster) for Q*G > 128.
+// Not yet: wgmma and TMA, one CTA (or a cluster) for Q*G > 128, a decode
+// G > 4 that reads each element once per CTA.
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -103,7 +113,10 @@ using repro::cp_async16;
 using repro::cp_async4;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
+using repro::fast_exp2;
 using repro::from_f;
+using repro::grid_dependency_wait;
+using repro::launch_dependents;
 using repro::ldsm_x4;
 using repro::ldsm_x4_t;
 using repro::mma_bf16;
@@ -128,6 +141,53 @@ __host__ __device__ constexpr size_t stage_bytes(int bs, int D) {
   return (size_t)2 * bs * D * sizeof(P) + (kQuant<T, P> ? (size_t)2 * bs * sizeof(float) : 0);
 }
 
+// This split's share [s_lo, s_lo + n) of a row's visited table entries
+// [w_lo, w_hi] (in the window of the row's first query, at or before its
+// last query position): the range is cut into `splits` contiguous parts of
+// ceil((w_hi - w_lo + 1) / splits) entries, so a row's result depends on
+// the split count only through f32 summation order.  Shared by the span
+// and decode bodies.
+__device__ __forceinline__ void split_range(int start, int len, int W, int bs,
+                                            int window, int split, int splits,
+                                            int& s_lo, int& n) {
+  const int last = start + len - 1;
+  const int w_hi = min(W - 1, last / bs);
+  int w_lo = 0;
+  if (window > 0 && start - window - bs + 1 >= 0) w_lo = (start - window - bs + 1) / bs + 1;
+  const int per = (w_hi - w_lo + splits) / splits;
+  s_lo = w_lo + split * per;
+  n = max(0, min(w_hi + 1, s_lo + per) - s_lo);
+}
+
+// Stage block `blk` of kv head kh into one ring stage (async, all THREADS
+// threads): K[bs][D] and V[bs][D] in P, then (quantized) the block's bs K
+// and bs V f32 scales (stage_bytes).
+template <typename T, typename P, int D, int THREADS>
+__device__ __forceinline__ void stage_block(unsigned char* st, const P* __restrict__ kp,
+                                            const P* __restrict__ vp, const Pool pool,
+                                            int blk, int kh, int bs) {
+  constexpr int CHUNK = 16 / sizeof(P);  // elements per 16-byte copy
+  P* ks = reinterpret_cast<P*>(st);
+  P* vs = ks + bs * D;
+  const P* kb = kp + (long long)blk * pool.k_blk + (long long)kh * pool.k_head;
+  const P* vb = vp + (long long)blk * pool.v_blk + (long long)kh * pool.v_head;
+  for (int c = threadIdx.x * CHUNK; c < bs * D; c += THREADS * CHUNK) {
+    const int t = c / D, d = c % D;
+    cp_async16(ks + c, kb + t * pool.k_pos + d);
+    cp_async16(vs + c, vb + t * pool.v_pos + d);
+  }
+  if constexpr (kQuant<T, P>) {
+    float* kss = reinterpret_cast<float*>(vs + bs * D);
+    float* vss = kss + bs;
+    const float* ksb = pool.ks + (long long)blk * pool.ks_blk + (long long)kh * pool.ks_head;
+    const float* vsb = pool.vs + (long long)blk * pool.vs_blk + (long long)kh * pool.vs_head;
+    for (int t = threadIdx.x; t < bs; t += THREADS) {
+      cp_async4(kss + t, ksb + t * pool.ks_pos);
+      cp_async4(vss + t, vsb + t * pool.vs_pos);
+    }
+  }
+}
+
 // Online-softmax attention of folded query rows [r0, r1) of row b, kv head
 // kh.  Folded row r is query j = r / G of the row, q head kh*G + r % G, at
 // absolute position start + j.  q/out are [B, Q, Hq, D] contiguous (type
@@ -141,7 +201,6 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
                             float scale) {
   constexpr int EPT = D / 32;
   constexpr int THREADS = WARPS * 32;
-  constexpr int CHUNK = 16 / sizeof(P);  // elements per 16-byte copy
   constexpr bool QUANT = kQuant<T, P>;
   // kStages x {K[bs][D], V[bs][D] in P, then (quantized) ks[bs], vs[bs] f32}
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -172,39 +231,13 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
     }
   }
 
-  // table entries [w_lo, w_hi]: in the window of the row's first query,
-  // at or before the row's last query position
-  const int last = start + len - 1;
-  const int w_hi = min(W - 1, last / bs);
-  int w_lo = 0;
-  if (window > 0 && start - window - bs + 1 >= 0) w_lo = (start - window - bs + 1) / bs + 1;
-  const int n = w_hi - w_lo + 1;
+  int w_lo, n;  // the row's visited table entries, one split
+  split_range(start, len, W, bs, window, 0, 1, w_lo, n);
 
   auto issue = [&](int it) {  // stage the it-th visited block (async)
-    if (it < n) {
-      const int blk = bt_row[w_lo + it];
-      if (blk != 0) {
-        P* ks = reinterpret_cast<P*>(smem_raw + (it % kStages) * stage);
-        P* vs = ks + bs * D;
-        const P* kb = kp + (long long)blk * pool.k_blk + (long long)kh * pool.k_head;
-        const P* vb = vp + (long long)blk * pool.v_blk + (long long)kh * pool.v_head;
-        for (int c = threadIdx.x * CHUNK; c < bs * D; c += THREADS * CHUNK) {
-          const int t = c / D, d = c % D;
-          cp_async16(ks + c, kb + t * pool.k_pos + d);
-          cp_async16(vs + c, vb + t * pool.v_pos + d);
-        }
-        if constexpr (QUANT) {
-          float* kss = reinterpret_cast<float*>(vs + bs * D);
-          float* vss = kss + bs;
-          const float* ksb = pool.ks + (long long)blk * pool.ks_blk + (long long)kh * pool.ks_head;
-          const float* vsb = pool.vs + (long long)blk * pool.vs_blk + (long long)kh * pool.vs_head;
-          for (int t = threadIdx.x; t < bs; t += THREADS) {
-            cp_async4(kss + t, ksb + t * pool.ks_pos);
-            cp_async4(vss + t, vsb + t * pool.vs_pos);
-          }
-        }
-      }
-    }
+    const int blk = it < n ? bt_row[w_lo + it] : 0;
+    if (blk != 0)
+      stage_block<T, P, D, THREADS>(smem_raw + (it % kStages) * stage, kp, vp, pool, blk, kh, bs);
     cp_async_commit();  // empty groups keep the wait count uniform
   };
 
@@ -289,23 +322,287 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
   }
 }
 
-// decode: 4 warps x 4 rows covers a GQA group of up to 16 q heads
-constexpr int kDecodeWarps = 4, kDecodeRows = 4;
+// decode: 4 warps, each scoring 4 q heads x 4 keys a pass; up to 4 row
+// groups cover a GQA group of 16 q heads
+constexpr int kDecodeWarps = 4, kDecodeRows = 4, kDecodeKeys = 4;
+
+// the decode CTA: the ring, whose bytes then hold each warp's f32 (acc,
+// (m, l)) for its 4 rows (never more than the ring for bs >= 8)
+template <typename T, typename P, int D>
+__host__ __device__ constexpr size_t decode_smem_bytes(int bs) {
+  const size_t ring = kStages * stage_bytes<T, P>(bs, D);
+  const size_t states = (size_t)kDecodeWarps * kDecodeRows * (D + 2) * sizeof(float);
+  return ring > states ? ring : states;
+}
 // span: 8 warps x 2 rows = 16 folded query rows per CTA
 constexpr int kSpanWarps = 8, kSpanRows = 2;
 constexpr int kSpanTile = kSpanWarps * kSpanRows;
 
+// N consecutive elements of type E as floats, in 16-byte (or one
+// smaller, for N * sizeof(E) < 16) vector loads; src aligned to that size
+template <typename E, int N>
+__device__ __forceinline__ void load_f(const E* __restrict__ src, float (&dst)[N]) {
+  constexpr int BYTES = N * (int)sizeof(E);
+  if constexpr (BYTES >= 16) {
+    constexpr int PER = 16 / sizeof(E);
+#pragma unroll
+    for (int c = 0; c < BYTES / 16; ++c) {
+      const uint4 raw = reinterpret_cast<const uint4*>(src)[c];
+      const E* e = reinterpret_cast<const E*>(&raw);
+#pragma unroll
+      for (int i = 0; i < PER; ++i) dst[c * PER + i] = to_f(e[i]);
+    }
+  } else {
+    using V = typename std::conditional<
+        BYTES == 8, uint2,
+        typename std::conditional<BYTES == 4, uint32_t,
+                                  typename std::conditional<BYTES == 2, uint16_t,
+                                                            uint8_t>::type>::type>::type;
+    const V raw = *reinterpret_cast<const V*>(src);
+    const E* e = reinterpret_cast<const E*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = to_f(e[i]);
+  }
+}
+
+// N floats stored as N consecutive elements of type E (float or bf16)
+template <typename E, int N>
+__device__ __forceinline__ void store_f(E* __restrict__ dst, const float (&src)[N]) {
+  constexpr int BYTES = N * (int)sizeof(E);
+  if constexpr (BYTES >= 16) {
+    constexpr int PER = 16 / sizeof(E);
+#pragma unroll
+    for (int c = 0; c < BYTES / 16; ++c) {
+      uint4 raw;
+      E* e = reinterpret_cast<E*>(&raw);
+#pragma unroll
+      for (int i = 0; i < PER; ++i) e[i] = from_f<E>(src[c * PER + i]);
+      reinterpret_cast<uint4*>(dst)[c] = raw;
+    }
+  } else {
+    using V = typename std::conditional<
+        BYTES == 8, uint2, typename std::conditional<BYTES == 4, uint32_t, uint16_t>::type>::type;
+    V raw;
+    E* e = reinterpret_cast<E*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) e[i] = from_f<E>(src[i]);
+    *reinterpret_cast<V*>(dst) = raw;
+  }
+}
+
+// One round of reduce_scatter16: lanes that differ in bit 2H swap halves
+// of their first 2H values; each keeps (and sums) the half its bit picks.
+template <int H>
+__device__ __forceinline__ void scatter_round(float (&v)[16], int lane) {
+  const bool up = lane & (2 * H);
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H];
+    const float keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * H);
+  }
+}
+
+// The 16 partial scores v[j] of (row j / 4, key j % 4), each lane's over
+// its slice of the head dims, summed over the warp: four rounds halve the
+// set a lane holds (15 shuffles), one more adds the last lane bit (a
+// butterfly of every score would take 80).  Returns the sum of score
+// j = lane >> 1.
+__device__ __forceinline__ float reduce_scatter16(float (&v)[16], int lane) {
+  scatter_round<8>(v, lane);
+  scatter_round<4>(v, lane);
+  scatter_round<2>(v, lane);
+  scatter_round<1>(v, lane);
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
+// One CTA per (key split, kv head, slot), 4 warps.  The slot's G q heads
+// (rows) fall into groups of 4, and each group's key groups (4 keys of a
+// block) are dealt out among its warps: G <= 4 gives 4 warps on every 4th
+// key group, so each staged K/V element is read from shared memory, and
+// each int8/e4m3 code converted, once per CTA; G <= 8 gives 2 row groups
+// x 2 warps, a larger G 4 x 1 (each element read once per row group).
+// A lane owns head dims [lane * D/32, (lane + 1) * D/32) of its warp's 4
+// rows: q and the accumulators stay in registers (2 x 4 x D/32 floats).
+// A pass scores the warp's 4 rows x 4 keys (16 dot products of D/32 terms
+// a lane, reduce_scatter16), keeps an online softmax per row in every lane
+// (scores in log2 units: scale_log2 = log2(e) / sqrt(D); the K scale on
+// the f32 score, the V scale on the weight), then gathers the 16 weights
+// to every lane for P.V.  The warps' (m, l, acc) meet in shared memory
+// (the ring's bytes, once it is drained); one split writes the output,
+// more write unnormalised f32 partials for paged_merge_kernel.
 template <typename T, typename P, int D>
-__global__ void __launch_bounds__(kDecodeWarps * 32)
+__global__ void __launch_bounds__(kDecodeWarps * 32, 1)
 paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ kp,
                     const P* __restrict__ vp, const int* __restrict__ bt,
                     const int* __restrict__ index, T* __restrict__ out,
-                    int Hq, int G, int W, int bs, Pool pool, int window,
-                    float scale) {
-  const int b = blockIdx.x, kh = blockIdx.y;
-  attend_rows<T, P, D, kDecodeWarps, kDecodeRows>(
-      q, out, kp, vp, pool, bt + (long long)b * W, W, bs, b, kh, /*Q=*/1, Hq,
-      G, 0, G, index[b], /*len=*/1, window, scale);
+                    float* __restrict__ part_acc, float* __restrict__ part_ml,
+                    int B, int Hq, int Hkv, int W, int bs, Pool pool,
+                    int window, float scale_log2) {
+  constexpr int EPT = D / 32;
+  constexpr int THREADS = kDecodeWarps * 32;
+  constexpr bool QUANT = kQuant<T, P>;
+  constexpr int RW = kDecodeRows, KW = kDecodeKeys;
+  static_assert(RW * KW == 16, "a pass is reduce_scatter16's 16 scores");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int splits = gridDim.x, split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const size_t stage = stage_bytes<T, P>(bs, D);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = G <= RW ? 1 : G <= 2 * RW ? 2 : 4;
+  const int shares = kDecodeWarps / groups;  // warps splitting a group's keys
+  const int share = warp % shares, g0 = warp / shares * RW;
+  const bool warp_live = g0 < G;
+  const int my_row = lane >> 3, my_key = (lane >> 1) & 3;  // reduce_scatter16
+  const int pos = index[b];
+  const int* bt_row = bt + (long long)b * W;
+
+  float qv[RW][EPT], acc[RW][EPT], m[RW], l[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    if (g0 + r < G) {
+      load_f<T, EPT>(q + ((long long)b * Hq + kh * G + g0 + r) * D + lane * EPT, qv[r]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) qv[r][e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) acc[r][e] = 0.f;
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+  int s_lo, n;
+  split_range(pos, 1, W, bs, window, split, splits, s_lo, n);
+
+  auto issue = [&](int it) {  // stage the it-th block of the split (async)
+    const int blk = it < n ? bt_row[s_lo + it] : 0;
+    if (blk != 0)
+      stage_block<T, P, D, THREADS>(smem_raw + (it % kStages) * stage, kp, vp, pool, blk, kh, bs);
+    cp_async_commit();  // empty groups keep the wait count uniform
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int it = 0; it < n; ++it) {
+    cp_async_wait<kStages - 2>();  // block `it` has landed
+    __syncthreads();               // ... and every warp is done with it - 1
+    issue(it + kStages - 1);       // into the stage block it - 1 used
+    const int w = s_lo + it;
+    if (!warp_live || bt_row[w] == 0) continue;  // NULL block: never attended
+    const P* ks = reinterpret_cast<const P*>(smem_raw + (it % kStages) * stage);
+    const P* vs = ks + bs * D;
+    const float* kss = reinterpret_cast<const float*>(vs + bs * D);
+    const float* vss = kss + bs;
+    for (int t0 = share * KW; t0 < bs; t0 += shares * KW) {
+      int ok = 0;  // bit u: key t0 + u is causal and in the window
+#pragma unroll
+      for (int u = 0; u < KW; ++u) {
+        const int kpos = w * bs + t0 + u;
+        ok |= (kpos <= pos && (window <= 0 || kpos > pos - window)) << u;
+      }
+      if (!ok) continue;  // warp-uniform
+      float v[RW * KW];
+#pragma unroll
+      for (int u = 0; u < KW; ++u) {
+        float kf[EPT];
+        load_f<P, EPT>(ks + (t0 + u) * D + lane * EPT, kf);
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPT; ++e) dot += qv[r][e] * kf[e];
+          v[r * KW + u] = dot;
+        }
+      }
+      float sc = reduce_scatter16(v, lane);
+      float f = scale_log2;
+      if constexpr (QUANT) f *= kss[t0 + my_key];  // K dequant
+      sc = ((ok >> my_key) & 1) && g0 + my_row < G ? sc * f : -INFINITY;
+      float mx = fmaxf(sc, __shfl_xor_sync(0xffffffffu, sc, 2));  // over the keys
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      float corr[RW], mine = 0.f;
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float mn = fmaxf(m[r], __shfl_sync(0xffffffffu, mx, r * 8));
+        const float u = mn == -INFINITY ? 0.f : mn;  // no key yet: p = 0
+        corr[r] = fast_exp2(m[r] - u);
+        m[r] = mn;
+        if (r == my_row) mine = u;
+      }
+      const float p = fast_exp2(sc - mine);  // masked: exp2(-inf) = 0
+      float pw[RW * KW];
+#pragma unroll
+      for (int j = 0; j < RW * KW; ++j) pw[j] = __shfl_sync(0xffffffffu, p, 2 * j);
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        float ps = 0.f;
+#pragma unroll
+        for (int u = 0; u < KW; ++u) ps += pw[r * KW + u];
+        l[r] = l[r] * corr[r] + ps;
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) acc[r][e] *= corr[r];
+      }
+#pragma unroll
+      for (int u = 0; u < KW; ++u) {
+        float vf[EPT];
+        load_f<P, EPT>(vs + (t0 + u) * D + lane * EPT, vf);
+        float vsc = 1.f;
+        if constexpr (QUANT) vsc = vss[t0 + u];  // V dequant on the weight
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          const float pr = pw[r * KW + u] * vsc;
+#pragma unroll
+          for (int e = 0; e < EPT; ++e) acc[r][e] += pr * vf[e];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  launch_dependents();  // the merge (splits > 1) may be scheduled now
+  __syncthreads();      // the ring is free: it holds the warps' states now
+
+  // [warp][row] x acc[D], then [warp][row] x (m, l)
+  float* st_acc = reinterpret_cast<float*>(smem_raw);
+  float* st_ml = st_acc + kDecodeWarps * RW * D;
+  if (warp_live) {
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      store_f<float, EPT>(st_acc + (warp * RW + r) * D + lane * EPT, acc[r]);
+      if (lane == 0) *reinterpret_cast<float2*>(st_ml + (warp * RW + r) * 2) = make_float2(m[r], l[r]);
+    }
+  }
+  __syncthreads();
+  // warp `share` of a row group finishes its rows share, share + shares, ...
+  const int first = warp - share;  // the group's first warp
+  for (int r = share; r < RW; r += shares) {
+    const int g = g0 + r;
+    if (g >= G) break;  // warp-uniform
+    float mx = -INFINITY;
+    for (int i = 0; i < shares; ++i) mx = fmaxf(mx, st_ml[((first + i) * RW + r) * 2]);
+    float o[EPT], lsum = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) o[e] = 0.f;
+    for (int i = 0; i < shares; ++i) {
+      const float2 ml = *reinterpret_cast<const float2*>(st_ml + ((first + i) * RW + r) * 2);
+      if (ml.x == -INFINITY) continue;  // saw no key: adds nothing
+      const float wgt = fast_exp2(ml.x - mx);
+      lsum += wgt * ml.y;
+      float a[EPT];
+      load_f<float, EPT>(st_acc + ((first + i) * RW + r) * D + lane * EPT, a);
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) o[e] += wgt * a[e];
+    }
+    if (splits == 1) {
+      const float inv = 1.f / fmaxf(lsum, 1e-30f);
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) o[e] *= inv;
+      store_f<T, EPT>(out + ((long long)b * Hq + kh * G + g) * D + lane * EPT, o);
+    } else {  // partials [split][B][Hkv][G] x (acc[D], (m, l))
+      const long long row = ((long long)(split * B + b) * Hkv + kh) * G + g;
+      store_f<float, EPT>(part_acc + row * D + lane * EPT, o);
+      if (lane == 0) *reinterpret_cast<float2*>(part_ml + row * 2) = make_float2(mx, lsum);
+    }
+  }
 }
 
 template <typename T, typename P, int D>
@@ -422,15 +719,10 @@ paged_span_tc_kernel(const __nv_bfloat16* __restrict__ q, const P* __restrict__ 
     *reinterpret_cast<uint4*>(qs + rl * LD + d) = v;
   }
 
-  // this split's share of the row's visited table entries [w_lo, w_hi]
+  // this split's share of the row's visited table entries
   const int start = row_start[b];
-  const int last = start + len - 1;
-  const int w_hi = min(W - 1, last / bs);
-  int w_lo = 0;
-  if (window > 0 && start - window - bs + 1 >= 0) w_lo = (start - window - bs + 1) / bs + 1;
-  const int per = (w_hi - w_lo + splits) / splits;
-  const int s_lo = w_lo + split * per;
-  const int n = max(0, min(w_hi + 1, s_lo + per) - s_lo);
+  int s_lo, n;
+  split_range(start, len, W, bs, window, split, splits, s_lo, n);
   const int* bt_row = bt + (long long)b * W;
 
   const int g = lane >> 2, c2 = (lane & 3) * 2;
@@ -602,6 +894,7 @@ paged_span_tc_kernel(const __nv_bfloat16* __restrict__ q, const P* __restrict__ 
     __syncthreads();  // every warp is done with this stage before reuse
   }
   cp_async_wait<0>();
+  launch_dependents();  // the merge (splits > 1) may be scheduled now
   if (!warp_live) return;
 
 #pragma unroll
@@ -639,20 +932,22 @@ paged_span_tc_kernel(const __nv_bfloat16* __restrict__ q, const P* __restrict__ 
   }
 }
 
-// Merge of the key splits: one warp per folded row, a lane owning D/32
-// head dims.  out = sum_s 2^(m_s - M) acc_s / max(sum_s 2^(m_s - M) l_s,
-// 1e-30), M = max_s m_s.  A split that saw no key (m_s = -inf) adds
-// nothing; a row that saw none, or a row with row_len == 0, gets zeros.
+// Merge of the key splits of the span (bf16 q) and decode bodies: one
+// warp per folded row, a lane owning D/32 head dims.  out = sum_s
+// 2^(m_s - M) acc_s / max(sum_s 2^(m_s - M) l_s, 1e-30), M = max_s m_s.  A
+// split that saw no key (m_s = -inf) adds nothing; a row that saw none, or
+// a span row with row_len == 0, gets zeros.  Decode passes no row_len
+// (every slot has its token).
 constexpr int kMergeWarps = 8;
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMergeWarps * 32)
-paged_span_merge_kernel(const float* __restrict__ part_acc,
-                        const float* __restrict__ part_ml,
-                        const int* __restrict__ row_len,
-                        __nv_bfloat16* __restrict__ out, int B, int Q, int Hq,
-                        int Hkv, int splits) {
+paged_merge_kernel(const float* __restrict__ part_acc,
+                   const float* __restrict__ part_ml,
+                   const int* __restrict__ row_len, T* __restrict__ out, int B,
+                   int Q, int Hq, int Hkv, int splits) {
   constexpr int EPT = D / 32;
+  grid_dependency_wait();  // the splits' partials are written and visible
   const int G = Hq / Hkv, R = Q * G;
   const int b = blockIdx.z, kh = blockIdx.y;
   const int r = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
@@ -661,7 +956,7 @@ paged_span_merge_kernel(const float* __restrict__ part_acc,
   float o[EPT];
 #pragma unroll
   for (int e = 0; e < EPT; ++e) o[e] = 0.f;
-  if (row_len[b] > 0) {
+  if (row_len == nullptr || row_len[b] > 0) {
     const long long stride = (long long)B * Hkv * R;  // rows between splits
     const long long row0 = ((long long)b * Hkv + kh) * R + r;
     float ms = -INFINITY, ls = 0.f;
@@ -692,21 +987,50 @@ paged_span_merge_kernel(const float* __restrict__ part_acc,
   }
   const long long orow = ((long long)(b * Q + r / G) * Hq + kh * G + r % G) * D;
 #pragma unroll
-  for (int e = 0; e < EPT; ++e) out[orow + e * 32 + lane] = __float2bfloat16(o[e]);
+  for (int e = 0; e < EPT; ++e) out[orow + e * 32 + lane] = from_f<T>(o[e]);
+}
+
+// the merge of `splits` partials of R = Q*G folded rows per (row, kv head),
+// launched as a programmatic dependent of the split kernel just before it
+// on the stream: its CTAs are scheduled once every split CTA has left its
+// key loop (launch_dependents; earlier, at a CTA's start, the waiting
+// merge CTAs slowed the span body 5-10 %) and wait in grid_dependency_wait
+// for the split grid to finish, so the merge's launch latency hides
+// behind the splits' epilogues
+template <typename T, int D>
+cudaError_t launch_merge(const float* part_acc, const float* part_ml,
+                         const int* row_len, void* out, int B, int Q, int Hq,
+                         int Hkv, int splits, cudaStream_t s) {
+  const int R = Q * (Hq / Hkv);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((R + kMergeWarps - 1) / kMergeWarps, Hkv, B);
+  cfg.blockDim = dim3(kMergeWarps * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, paged_merge_kernel<T, D>, part_acc, part_ml,
+                            row_len, (T*)out, B, Q, Hq, Hkv, splits);
 }
 
 template <typename T, typename P, int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
-                          const int* bt, const int* index, void* out, int B,
-                          int Hq, int Hkv, int W, int bs, Pool pool, int window,
-                          float scale, cudaStream_t s) {
-  const size_t smem = kStages * stage_bytes<T, P>(bs, D);
-  const cudaError_t err = allow_smem(paged_decode_kernel<T, P, D>, smem);
+                          const int* bt, const int* index, void* out,
+                          float* part_acc, float* part_ml, int B, int Hq,
+                          int Hkv, int W, int bs, Pool pool, int window,
+                          float scale, int splits, cudaStream_t s) {
+  const size_t smem = decode_smem_bytes<T, P, D>(bs);
+  cudaError_t err = allow_smem(paged_decode_kernel<T, P, D>, smem);
   if (err != cudaSuccess) return err;
-  paged_decode_kernel<T, P, D><<<dim3(B, Hkv), kDecodeWarps * 32, smem, s>>>(
-      (const T*)q, (const P*)k, (const P*)v, bt, index, (T*)out, Hq, Hq / Hkv,
-      W, bs, pool, window, scale);
-  return cudaGetLastError();
+  paged_decode_kernel<T, P, D><<<dim3(splits, Hkv, B), kDecodeWarps * 32, smem, s>>>(
+      (const T*)q, (const P*)k, (const P*)v, bt, index, (T*)out, part_acc,
+      part_ml, B, Hq, Hkv, W, bs, pool, window, scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_merge<T, D>(part_acc, part_ml, nullptr, out, B, 1, Hq, Hkv, splits, s);
 }
 
 template <typename T, typename P, int D>
@@ -728,13 +1052,14 @@ cudaError_t launch_span(const void* q, const void* k, const void* v,
 // Pool storage dispatch: kv 0 = the model dtype T, 1 = int8, 2 = fp8 e4m3.
 template <typename T, int D>
 cudaError_t decode_kv(int kv, const void* q, const void* k, const void* v,
-                      const int* bt, const int* index, void* out, int B, int Hq,
-                      int Hkv, int W, int bs, Pool pool, int window, float scale,
-                      cudaStream_t s) {
+                      const int* bt, const int* index, void* out,
+                      float* part_acc, float* part_ml, int B, int Hq, int Hkv,
+                      int W, int bs, Pool pool, int window, float scale,
+                      int splits, cudaStream_t s) {
   switch (kv) {
-    case 0: return launch_decode<T, T, D>(q, k, v, bt, index, out, B, Hq, Hkv, W, bs, pool, window, scale, s);
-    case 1: return launch_decode<T, int8_t, D>(q, k, v, bt, index, out, B, Hq, Hkv, W, bs, pool, window, scale, s);
-    case 2: return launch_decode<T, __nv_fp8_e4m3, D>(q, k, v, bt, index, out, B, Hq, Hkv, W, bs, pool, window, scale, s);
+    case 0: return launch_decode<T, T, D>(q, k, v, bt, index, out, part_acc, part_ml, B, Hq, Hkv, W, bs, pool, window, scale, splits, s);
+    case 1: return launch_decode<T, int8_t, D>(q, k, v, bt, index, out, part_acc, part_ml, B, Hq, Hkv, W, bs, pool, window, scale, splits, s);
+    case 2: return launch_decode<T, __nv_fp8_e4m3, D>(q, k, v, bt, index, out, part_acc, part_ml, B, Hq, Hkv, W, bs, pool, window, scale, splits, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -756,10 +1081,8 @@ cudaError_t launch_span_tc(const void* q, const void* k, const void* v,
       scale * 1.4426950408889634f);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  paged_span_merge_kernel<D><<<dim3((R + kMergeWarps - 1) / kMergeWarps, Hkv, B),
-                               kMergeWarps * 32, 0, s>>>(
-      part_acc, part_ml, row_len, (__nv_bfloat16*)out, B, Q, Hq, Hkv, splits);
-  return cudaGetLastError();
+  return launch_merge<__nv_bfloat16, D>(part_acc, part_ml, row_len, out, B, Q,
+                                        Hq, Hkv, splits, s);
 }
 
 // The span body is chosen by q's dtype T: f32 q runs attend_rows on the
@@ -793,13 +1116,15 @@ cudaError_t span_kv(int kv, const void* q, const void* k, const void* v,
 // scales, else null).  window <= 0: no sliding window.  Strides are in
 // elements.  Returns the launch's cudaError_t (0 = ok; -1 for an
 // unsupported dtype/head_dim, which the Python wrapper rejects before
-// calling).  paged_span_launch with bf16 q splits each row's keys over
-// `splits` CTAs (1..16); with splits > 1, part_acc (f32 [splits, B, Hkv,
-// Q*G, D]) and part_ml (f32 [splits, B, Hkv, Q*G, 2]) are its workspace.
-// f32 q ignores splits and the workspace.
+// calling).  paged_decode_launch (Q = 1) and paged_span_launch with bf16
+// q split each row's keys over `splits` CTAs (1..16); with splits > 1,
+// part_acc (f32 [splits, B, Hkv, Q*G, D]) and part_ml (f32 [splits, B,
+// Hkv, Q*G, 2]) are the workspace.  The span with f32 q ignores splits
+// and the workspace.
 extern "C" int paged_decode_launch(const void* q, const void* k, const void* v,
                                    const float* ks, const float* vs,
                                    const int* bt, const int* index, void* out,
+                                   float* part_acc, float* part_ml,
                                    int dtype, int kv, int B, int Hq, int Hkv,
                                    int D, int W, int bs, long long k_blk,
                                    long long k_pos, long long k_head,
@@ -808,11 +1133,12 @@ extern "C" int paged_decode_launch(const void* q, const void* k, const void* v,
                                    long long ks_pos, long long ks_head,
                                    long long vs_blk, long long vs_pos,
                                    long long vs_head, int window, float scale,
-                                   void* stream) {
+                                   int splits, void* stream) {
   const Pool pool{k_blk,  k_pos,  k_head,  v_blk,  v_pos,  v_head, ks,
                   vs,     ks_blk, ks_pos, ks_head, vs_blk, vs_pos, vs_head};
-  REPRO_DISPATCH(dtype, D, decode_kv, kv, q, k, v, bt, index, out, B, Hq, Hkv,
-                 W, bs, pool, window, scale, (cudaStream_t)stream);
+  REPRO_DISPATCH(dtype, D, decode_kv, kv, q, k, v, bt, index, out, part_acc,
+                 part_ml, B, Hq, Hkv, W, bs, pool, window, scale, splits,
+                 (cudaStream_t)stream);
 }
 
 extern "C" int paged_span_launch(const void* q, const void* k, const void* v,

@@ -10,7 +10,9 @@ float32 scales ``k_scales``/``v_scales`` in the engine layout
 plain versions dequantize the gathered view to q's dtype.
 
 * :func:`paged_decode_fwd` / :func:`paged_decode_plain` — one query token
-  per slot (``Q == 1``) at absolute position ``index[b]``.
+  per slot (``Q == 1``) at absolute position ``index[b]``; the CUDA body's
+  4 warps divide each block's keys, and each slot's visited keys split
+  over the CTAs that :func:`decode_split_plan` counts from the shapes.
 * :func:`paged_span_fwd` / :func:`paged_span_plain` — ragged rows: row
   ``b`` holds ``row_len[b]`` queries at positions ``row_start[b] + j``;
   query rows past ``row_len`` are garbage by contract (the CUDA kernel
@@ -50,6 +52,10 @@ _SMEM_LIMIT = 227 * 1024  # shared memory one CTA may use on Hopper
 SPAN_TILE_ROWS = 128  # kTcRows in the source: folded rows per tensor-core CTA
 MAX_SPLITS = 16  # key splits of one row (the merge's lanes hold <= 32)
 MIN_SPLIT_BLOCKS = 4  # table entries a split covers at the least
+# decode CTAs (4 warps, ~32 KB of ring) the plan puts on each SM: two hide
+# each other's per-block latency (7-11 % faster than one at the main
+# path's decode shape on an H100, every pool; PERF.md, section 6)
+DECODE_FILL = 2
 
 
 # ----------------------------------------------------------------------
@@ -140,8 +146,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE).lib
-    lib.paged_decode_launch.argtypes = ([_P] * 8 + [_I] * 8 + [_L] * 12
-                                        + [_I, _F, _P])
+    lib.paged_decode_launch.argtypes = ([_P] * 10 + [_I] * 8 + [_L] * 12
+                                        + [_I, _F, _I, _P])
     lib.paged_decode_launch.restype = _I
     lib.paged_span_launch.argtypes = ([_P] * 11 + [_I] * 9 + [_L] * 12
                                       + [_I, _F, _I, _P])
@@ -168,6 +174,50 @@ def span_split_plan(b: int, hkv: int, rows: int, w: int, sms: int):
     tiles = -(-rows // SPAN_TILE_ROWS)
     splits = -(-sms // (b * hkv * tiles))
     return tiles, max(1, min(splits, MAX_SPLITS, w // MIN_SPLIT_BLOCKS))
+
+
+def decode_split_plan(b: int, hkv: int, w: int, sms: int) -> int:
+    """Key splits of the decode body for ``b`` slots over ``w`` table
+    entries, on a card of ``sms`` SMs.  From the shapes alone (the
+    positions stay on the device): one CTA per (slot, kv head, split);
+    splits are added until the CTAs fill the SMs ``DECODE_FILL`` times,
+    each split keeping at least ``MIN_SPLIT_BLOCKS`` table entries of a
+    full table."""
+    splits = -(-DECODE_FILL * sms // (b * hkv))
+    return max(1, min(splits, MAX_SPLITS, w // MIN_SPLIT_BLOCKS))
+
+
+def _check_splits(splits):
+    if splits is not None and (not isinstance(splits, int)
+                               or not 1 <= splits <= MAX_SPLITS):
+        raise ValueError(f"splits={splits!r}: expected an int in "
+                         f"[1, {MAX_SPLITS}]")
+
+
+def _workspace(splits, b, hkv, rows, d, device):
+    """The merge's f32 workspace, [splits, B, Hkv, rows] x D and then x
+    (m, l), in one allocation: (tensor, part_acc pointer, part_ml
+    pointer), the tensor to be held through the launch; no workspace and
+    null pointers for one split."""
+    if splits == 1:
+        return None, 0, 0
+    n = splits * b * hkv * rows
+    ws = torch.empty(n * (d + 2), dtype=torch.float32, device=device)
+    return ws, ws.data_ptr(), ws.data_ptr() + n * d * 4
+
+
+def _ring_smem(bs: int, d: int, item: int, quantized: bool) -> int:
+    """The CUDA-core bodies' ring: _STAGES blocks of K and V codes, plus
+    their bs K and bs V f32 scales when quantized (stage_bytes)."""
+    return _STAGES * (2 * bs * d * item + (2 * bs * 4 if quantized else 0))
+
+
+def _decode_smem(bs: int, d: int, item: int, quantized: bool) -> int:
+    """Shared memory of the decode CTA (decode_smem_bytes in the source):
+    the ring, whose bytes then hold the 4 warps' f32 acc and (m, l) of 4
+    rows each."""
+    return max(_ring_smem(bs, d, item, quantized),
+               _MAX_ROWS_PER_CTA * (d + 2) * 4)
 
 
 def _span_tc_smem(bs: int, d: int, item: int, quantized: bool) -> int:
@@ -224,10 +274,12 @@ def _check(q, k_pages, v_pages, block_tables, rows: dict, k_scales, v_scales,
     if max_g is not None and hq // hkv > max_g:
         raise ValueError(f"GQA group {hq // hkv} > {max_g} rows per CTA")
     item = k_pages.element_size()
-    if span and q.dtype == torch.bfloat16:
+    if not span:
+        smem = _decode_smem(bs, d, item, quantized)
+    elif q.dtype == torch.bfloat16:
         smem = _span_tc_smem(bs, d, item, quantized)
     else:
-        smem = _STAGES * (2 * bs * d * item + (2 * bs * 4 if quantized else 0))
+        smem = _ring_smem(bs, d, item, quantized)
     if bs % 8 or smem > _SMEM_LIMIT:
         raise ValueError(f"block_size {bs} must be a multiple of 8 and "
                          f"{_STAGES} staged K/V blocks of {bs} x {d} must fit "
@@ -276,22 +328,30 @@ def _pool_args(k_pages, v_pages, k_scales, v_scales):
 
 
 def paged_decode_fwd(q, k_pages, v_pages, block_tables, index, *,
-                     window: int | None = None, k_scales=None, v_scales=None):
+                     window: int | None = None, k_scales=None, v_scales=None,
+                     splits: int | None = None):
     """Launch the CUDA paged-decode kernel on the current stream.
-    q: [B, 1, Hq, D] -> [B, 1, Hq, D]."""
+    q: [B, 1, Hq, D] -> [B, 1, Hq, D].  ``splits`` key splits per slot
+    (default: :func:`decode_split_plan`; 1 writes the output from one CTA
+    per (slot, kv head), with no merge)."""
     if q.dim() == 4 and q.shape[1] != 1:
         raise ValueError(f"paged decode takes one query per slot, got {q.shape}")
+    window = _window(window)
+    _check_splits(splits)
     b, hq, hkv, d, w, bs = _check(q, k_pages, v_pages, block_tables,
                                   {"index": index}, k_scales, v_scales,
                                   max_g=_MAX_ROWS_PER_CTA)
+    if splits is None:
+        splits = decode_split_plan(b, hkv, w, _sm_count(q.device.index))
     kv, ks, vs, strides = _pool_args(k_pages, v_pages, k_scales, v_scales)
     out = torch.empty_like(q)
+    ws, part_acc, part_ml = _workspace(splits, b, hkv, hq // hkv, d, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().paged_decode_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
-        block_tables.data_ptr(), index.data_ptr(), out.data_ptr(),
-        _DTYPE_IDS[q.dtype], kv, b, hq, hkv, d, w, bs, *strides,
-        _window(window), 1.0 / math.sqrt(d), stream)
+        block_tables.data_ptr(), index.data_ptr(), out.data_ptr(), part_acc,
+        part_ml, _DTYPE_IDS[q.dtype], kv, b, hq, hkv, d, w, bs, *strides,
+        window, 1.0 / math.sqrt(d), splits, stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {rc}")
     return out
@@ -305,10 +365,7 @@ def paged_span_fwd(q, k_pages, v_pages, block_tables, row_start, row_len, *,
     row (default: :func:`span_split_plan`; 1 writes the output from one
     CTA per row tile, with no merge); f32 q takes no splits."""
     window = _window(window)
-    if splits is not None and (not isinstance(splits, int)
-                               or not 1 <= splits <= MAX_SPLITS):
-        raise ValueError(f"splits={splits!r}: expected an int in "
-                         f"[1, {MAX_SPLITS}]")
+    _check_splits(splits)
     if q.dtype != torch.bfloat16 and splits not in (None, 1):
         raise ValueError(f"splits={splits}: the {q.dtype} span body does not "
                          f"split keys")
@@ -322,18 +379,12 @@ def paged_span_fwd(q, k_pages, v_pages, block_tables, row_start, row_len, *,
         splits = span_split_plan(b, hkv, rows, w, _sm_count(q.device.index))[1]
     kv, ks, vs, strides = _pool_args(k_pages, v_pages, k_scales, v_scales)
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if splits > 1:  # the merge's f32 workspace
-        part_acc = torch.empty(splits * b * hkv * rows * d, dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty(splits * b * hkv * rows * 2, dtype=torch.float32,
-                              device=q.device)
+    ws, part_acc, part_ml = _workspace(splits, b, hkv, rows, d, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().paged_span_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
         block_tables.data_ptr(), row_start.data_ptr(), row_len.data_ptr(),
-        out.data_ptr(), 0 if part_acc is None else part_acc.data_ptr(),
-        0 if part_ml is None else part_ml.data_ptr(), _DTYPE_IDS[q.dtype], kv,
+        out.data_ptr(), part_acc, part_ml, _DTYPE_IDS[q.dtype], kv,
         b, q.shape[1], hq, hkv, d, w, bs, *strides, window,
         1.0 / math.sqrt(d), splits, stream)
     if rc != 0:

@@ -1,7 +1,9 @@
 """Torch port on the card: the CUDA paged kernels (native and quantized
 int8/fp8 pools) and the flash kernel against their plain torch versions,
 the paged decode and span bodies and the flash kernel against the float64
-attention oracle (span at GQA groups 1, 4, 8 and 12),
+attention oracle (span at GQA groups 1, 4, 8 and 12; decode at 1, 4, 8, 12
+and 16, a 2560-token slot, 64 slots and position 0, with the plan's key
+splits and one forced split),
 the SSD scan kernel and its plain version against the float64 oracle,
 and the engines' kernel-vs-plain greedy invariant.
 
@@ -178,6 +180,63 @@ def test_decode_kernel_holds_to_f64_oracle(cuda_device, d, window, dtype,
     out = paged.paged_decode_fwd(q, kp, vp, bt, idx, window=window, **sc)
     want = attn_ref.paged_attention_ref(q, kp, vp, bt, idx, window=window, **sc)
     assert torch.isfinite(out).all()
+    assert attn_ref.check_ratio(out, want) <= 1.0
+
+
+# decode past the main path's slots: the GQA groups of the configs the port
+# carries at their own head counts (recurrentgemma's G 16 at D 256 is the
+# largest group the launcher takes), a 2560-token slot (the plan's 16
+# splits; window 100 leaves most of them without a key), 64 slots (one
+# split, no merge) and a slot at position 0 (one key).  (q heads, kv
+# heads, D, slot positions, table width W)
+DECODE_CASES = {
+    "codeqwen-G1": (32, 32, 128, [0, 17, 300, 543], 34),
+    "yi-G8": (32, 4, 128, [0, 17, 300, 543], 34),
+    "mistral-large-G12": (96, 8, 128, [0, 17, 300, 543], 34),
+    "recurrentgemma-G16-D256": (16, 1, 256, [0, 17, 300, 543], 34),
+    "long-slot": (32, 8, 128, [2559], 160),
+    "64-slots": (32, 8, 128, [(37 * i) % 544 for i in range(64)], 34),
+    "position-0": (32, 8, 128, [0], 34),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DECODE_CASES.values()), ids=list(DECODE_CASES))
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
+@pytest.mark.parametrize("window", [None, 100])
+def test_decode_splits_hold_to_f64_oracle(cuda_device, case, kv_dtype, window):
+    """Kernel 1/1q with bf16 q: the plan's key splits and one forced split
+    each within the check of the f64 oracle, and within one bf16 ulp of
+    each other (``ref.SPLIT_CHECK``)."""
+    hq, hkv, d, starts, w = case
+    q, kp, vp, bt, idx, _ = _case(cuda_device, torch.bfloat16, b=len(starts),
+                                  q_len=1, starts=starts, lens=[1] * len(starts),
+                                  hkv=hkv, g=hq // hkv, d=d, w=w,
+                                  nb=max(512, len(starts) * w + 1))
+    sc = {}
+    if kv_dtype != "fp16":
+        kp, vp, sc = _quantize_pool(kp, vp, kv_dtype)
+    out = paged.paged_decode_fwd(q, kp, vp, bt, idx, window=window, **sc)
+    one = paged.paged_decode_fwd(q, kp, vp, bt, idx, window=window, splits=1,
+                                 **sc)
+    want = attn_ref.paged_attention_ref(q, kp, vp, bt, idx, window=window, **sc)
+    assert torch.isfinite(out).all()
+    assert attn_ref.check_ratio(out, want) <= 1.0
+    assert attn_ref.check_ratio(one, want) <= 1.0
+    assert attn_ref.check_ratio(out, one, *attn_ref.SPLIT_CHECK) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("splits", [None, 1, 7, 16])
+def test_decode_f32_splits_hold_to_f64_oracle(cuda_device, window, splits):
+    """f32 q runs the same body and splits too: the long slot and a slot at
+    0 within the f32 check (1e-4, 1e-4) at any split count."""
+    q, kp, vp, bt, idx, _ = _case(cuda_device, torch.float32, b=2, q_len=1,
+                                  starts=[2559, 0], lens=[1, 1], w=160)
+    out = paged.paged_decode_fwd(q, kp, vp, bt, idx, window=window,
+                                 splits=splits)
+    want = attn_ref.paged_attention_ref(q, kp, vp, bt, idx, window=window)
     assert attn_ref.check_ratio(out, want) <= 1.0
 
 
