@@ -29,13 +29,16 @@ Phases (each prints its own lines; any failure exits non-zero):
    against their plain dequant-gather versions on the same pool (bf16
    and f32 q, window off and on), timed at the same shapes (int8; the
    SDPA yardstick runs over the pre-dequantized bf16 view, dequant
-   excluded).  The SSD scan kernel (kernel 4) and its plain chunked
-   version each against the float64 sequential recurrence at
-   mamba2-370m's widths (H 32, P 64, N 128, G 1; S 200 / 300 / 512,
-   B 1 / 4, bf16 and f32), at an overflow-prone dt * a and at the JAX
-   test's grouped shapes (G 2, 4), held to ``ssd_scan.ref.check_ratio``
-   <= 1 (the check PERF.md states); then timed at the wave's longest
-   prompt (no single PyTorch call computes the scan: no library time).
+   excluded).  The SSD scan kernel (kernel 4: bf16 on the tensor cores
+   in three kernels, chunks in parallel; f32 on the CUDA cores) and its
+   plain chunked version each against the float64 sequential recurrence
+   at mamba2-370m's widths (H 32, P 64, N 128, G 1; S 200 / 300 / 512,
+   B 1 / 4, a 2560-token prompt, S 1 and 17, bf16 and f32), at an
+   overflow-prone dt * a (B 1 and 4 at S 300) and at the JAX test's
+   grouped shapes (G 2, 4), held to ``ssd_scan.ref.check_ratio`` <= 1
+   (the check PERF.md states); then timed at the wave's longest prompt
+   (no single PyTorch call computes the scan: no library time); the
+   build prints ptxas's registers and spill stores of every SSD kernel.
    The span bodies (kernels 2/2q: bf16 q on the tensor cores with key
    splits, f32 q on the CUDA cores) against the float64 attention oracle
    (``kernels/attention/ref.py``) in 30 cases — native, int8 and fp8
@@ -147,6 +150,9 @@ REPLACES = {"paged_decode": "src/repro/kernels/attention/paged.py:102",
             "paged_span_quant": "src/repro/kernels/attention/paged.py:158",
             "flash_attention": "src/repro/kernels/attention/flash.py:100",
             "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:76"}
+# the SSD source's kernels: the f32 body, then the bf16 body's three phases
+SSD_KERNELS = ("ssd_scan_kernel", "ssd_chunk_state_kernel",
+               "ssd_state_pass_kernel", "ssd_chunk_out_kernel")
 # configs whose GQA group (1, 8, 12) the span and flash oracle cases fold
 SPAN_GROUP_ARCHS = ("codeqwen1.5-7b", "yi-9b", "mistral-large-123b")
 # full-width granite-8b pool bytes per token: 36 layers x 8 kv heads x K,V
@@ -177,7 +183,8 @@ def card_line() -> str:
 
 def ptxas_rows(log: str, kernel: str):
     """[(template arguments, registers, spill store bytes)] of every
-    instantiation of ``kernel`` in an ``nvcc -Xptxas=-v`` log."""
+    instantiation of ``kernel`` in an ``nvcc -Xptxas=-v`` log ("" for a
+    kernel that is not a template)."""
     rows, name, spill = [], None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -199,7 +206,7 @@ def ptxas_rows(log: str, kernel: str):
                                timeout=30).stdout.splitlines()
         for r, full in zip(rows, names):
             m = re.search(kernel + r"(<[^>]*>)", full)
-            r[0] = m.group(1) if m else full
+            r[0] = m.group(1) if m else ""  # not a template
     except (OSError, subprocess.SubprocessError):
         pass
     return [tuple(r) for r in rows]
@@ -894,6 +901,9 @@ def ssd_phase(torch, np):
              for b in (1, 4)]
     cases += [(1, 300, 32, 64, 128, 1, 3.0),  # dt * a down to -48 a token
               (1, 100, 2, 32, 16, 2, None), (2, 64, 8, 16, 8, 4, None)]
+    # 40 chunks, one token, one part chunk, 4 ragged tails at a large dt
+    cases += [(1, 2560, 32, 64, 128, 1, None), (1, 1, 32, 64, 128, 1, None),
+              (1, 17, 32, 64, 128, 1, None), (4, 300, 32, 64, 128, 1, 3.0)]
     worst = {}
     for dt_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dt_name)
@@ -930,6 +940,7 @@ def ssd_phase(torch, np):
              library_ms=None)
     r["bound_ms"], r["bound_by"] = ssd_bound_ms("bfloat16", x, dt, a_log, bm,
                                                 cm, y, state, chunk)
+    r["oracle_ratio"] = worst["bfloat16"]
     print(f"[smoke] ssd_scan bf16 wave shapes (B 1, S 512): kernel "
           f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, no library call, "
           f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}); worst check ratio "
@@ -1319,11 +1330,14 @@ def profile_window(torch, eng, prompts, gen, label):
     if not kern or busy_ms <= 0:
         print(f"[smoke] {label} profile: no device time recorded (not measured)")
         return None
-    named = ("flash", "paged_decode", "paged_span", "paged_merge", "ssd_scan")
+    named = {f: (f,) for f in ("flash", "paged_decode", "paged_span",
+                               "paged_merge")}
+    named["ssd_scan"] = SSD_KERNELS
     fams = dict.fromkeys((*named, "gemm", "other"), 0.0)
     for e in kern:
         n = e.key.lower()
-        fam = next((f for f in named if f in n), None) or (
+        fam = next((f for f, keys in named.items() if any(k in n for k in keys)),
+                   None) or (
             "gemm" if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet"))
             else "other")
         fams[fam] += e.self_device_time_total / 1e3
@@ -1522,9 +1536,10 @@ def main() -> int:
               f"ptxas: {len(regs)} kernels, {min(regs, default=0)}-"
               f"{max(regs, default=0)} registers, {len(spills)} with spill "
               f"stores (max {max(spills, default=0)} bytes)")
-        for args, n_regs, spill in ptxas_rows(built.log, "paged_decode_kernel"):
-            print(f"[smoke] ptxas paged_decode_kernel{args}: {n_regs} "
-                  f"registers, {spill} bytes spill stores")
+        for kernel in ("paged_decode_kernel", *SSD_KERNELS):
+            for args, n_regs, spill in ptxas_rows(built.log, kernel):
+                print(f"[smoke] ptxas {kernel}{args}: {n_regs} registers, "
+                      f"{spill} bytes spill stores")
     print(f"[smoke] build phase {time.perf_counter() - t0:.1f}s (parallel nvcc)")
 
     phase_s = {}

@@ -2,10 +2,10 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on first
 use into a shared library under ``_build/`` beside this module (listed in
-``.gitignore``), named by the hash of its source and the ``*.cuh``
-headers beside it, so an edited kernel is rebuilt and an unchanged one is
-loaded as is.  :func:`load_all` starts one nvcc per source, all
-together::
+``.gitignore``), named by the hash of its source, the ``*.cuh`` headers
+beside it and the headers it includes by a relative path, so an edited
+kernel is rebuilt and an unchanged one is loaded as is.  :func:`load_all`
+starts one nvcc per source, all together::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas=-v -o _build/<name>-<hash>.so <source>
@@ -20,11 +20,13 @@ import dataclasses
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
 
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 
@@ -51,9 +53,13 @@ def nvcc_path() -> str:
 
 
 def _target(source: pathlib.Path) -> pathlib.Path:
-    """The library built from ``source`` and the headers beside it."""
-    h = hashlib.sha256(source.read_bytes())
-    for header in sorted(source.parent.glob("*.cuh")):
+    """The library built from ``source``, the headers beside it and those
+    it includes as ``#include "relative/path"``."""
+    text = source.read_bytes()
+    h = hashlib.sha256(text)
+    headers = set(source.parent.glob("*.cuh")) | {
+        (source.parent / m.decode()).resolve() for m in _INCLUDE.findall(text)}
+    for header in sorted(headers):
         h.update(header.read_bytes())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 

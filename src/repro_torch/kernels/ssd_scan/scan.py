@@ -16,11 +16,15 @@ initial state (the only way the model calls the scan).
   through its strides (unit stride on P and N, 16-byte aligned rows): no
   group expansion, padding or transpose.  The kernel picks its own chunk
   length (64); the chunked algorithm computes the same function for every
-  chunk length, up to float32 rounding.
+  chunk length, up to float32 rounding.  bf16 runs the tensor-core body
+  (three kernels: chunk states, a state pass, the outputs) over a float32
+  workspace that :func:`scan_plan` sizes from the shapes alone; float32
+  runs the CUDA-core body, which needs none.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import pathlib
 
@@ -33,6 +37,36 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 P_TILE = 16  # state columns per CTA (kPT in the source)
 MAX_STATE = 256  # largest N (kMaxN in the source)
+CHUNK = 64  # the kernels' chunk length (kL in the source)
+BF16_P_TILES = (64, 32, 16)  # the bf16 body's P tiles, widest first
+ROW_PAD = 8  # bf16 elements padding a shared-memory row (kPad)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """The bf16 body's launch plan for one scan, from shapes alone."""
+    chunks: int  # nc = ceil(S / CHUNK)
+    p_tile: int  # P columns a CTA (the widest of BF16_P_TILES dividing P)
+    n_pad: int  # N rounded up to the mma depth (16)
+    workspace: int  # float32 elements: B nc H N P states, B H nc decays
+    smem_state: int  # dynamic shared bytes of a chunk-state CTA
+    smem_out: int  # dynamic shared bytes of an output CTA (+ f32 partial y)
+
+
+def scan_plan(b: int, s: int, h: int, p: int, n: int) -> ScanPlan:
+    """Chunk count, P tile, padded N, workspace and shared memory of the
+    bf16 body (``chunk_state_smem`` / ``chunk_out_smem`` in the source)."""
+    nc = -(-s // CHUNK)
+    pt = next(t for t in BF16_P_TILES if p % t == 0)
+    npad = -(-n // 16) * 16
+    ld_n, ld_p = npad + ROW_PAD, pt + ROW_PAD
+    cum = 2 * 4 * CHUNK  # dt and cum, f32
+    return ScanPlan(
+        chunks=nc, p_tile=pt, n_pad=npad,
+        workspace=b * nc * h * n * p + b * h * nc,
+        smem_state=2 * (CHUNK * ld_n + 2 * CHUNK * ld_p) + cum,
+        smem_out=2 * (2 * CHUNK * ld_n + CHUNK * ld_p + 2 * npad * ld_p)
+        + 4 * CHUNK * ld_p + cum)
 
 
 def ssd_chunked_plain(x, dt, a_log, bmat, cmat, chunk: int):
@@ -93,7 +127,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE).lib
-    lib.ssd_scan_launch.argtypes = [_P] * 7 + [_I] * 7 + [_L] * 12 + [_P]
+    lib.ssd_scan_launch.argtypes = [_P] * 7 + [_I] * 7 + [_L] * 12 + [_P, _I, _P]
     lib.ssd_scan_launch.restype = _I
     return lib
 
@@ -162,12 +196,18 @@ def ssd_scan_fwd(x, dt, a_log, bmat, cmat):
     g, n = bmat.shape[2], bmat.shape[3]
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    ws, p_tile = None, 0
+    if x.dtype == torch.bfloat16:
+        plan = scan_plan(b, s, h, p, n)
+        ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+        p_tile = plan.p_tile
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib().ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), bmat.data_ptr(),
         cmat.data_ptr(), y.data_ptr(), state.data_ptr(), _DTYPE_IDS[x.dtype],
         b, s, h, p, g, n, *x.stride()[:3], *dt.stride(), *bmat.stride()[:3],
-        *cmat.stride()[:3], stream)
+        *cmat.stride()[:3], None if ws is None else ws.data_ptr(), p_tile,
+        stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
     return y, state

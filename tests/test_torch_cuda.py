@@ -4,8 +4,10 @@ the paged decode and span bodies and the flash kernel against the float64
 attention oracle (span at GQA groups 1, 4, 8 and 12; decode at 1, 4, 8, 12
 and 16, a 2560-token slot, 64 slots and position 0, with the plan's key
 splits and one forced split),
-the SSD scan kernel and its plain version against the float64 oracle,
-and the engines' kernel-vs-plain greedy invariant.
+the SSD scan kernel and its plain version against the float64 oracle
+(the bf16 tensor-core body also at 2560 tokens, S 1 and 17, ragged
+tails, the narrow P tiles, padded N and strided views), and the engines'
+kernel-vs-plain greedy invariant.
 
 Every test here needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
 mode) and skips elsewhere.  The file imports neither jax nor ``repro``,
@@ -505,3 +507,55 @@ def test_ssd_kernel_reads_strided_views_and_refuses_what_it_cannot_take(
                          mode="pallas")
     assert ssd_ops.ssd_scan.launches == 0
     assert ssd_scan.ssd_chunked_plain.calls == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    # b, s, h, p, n, g, dt_max: a 2560-token prompt (40 chunks), one token,
+    # 17 tokens (one part chunk), 4 sequences at S 300 with ragged tails
+    # and an overflow-prone dt
+    (1, 2560, 32, 64, 128, 1, None), (1, 1, 32, 64, 128, 1, None),
+    (1, 17, 32, 64, 128, 1, None), (4, 300, 32, 64, 128, 1, 3.0),
+], ids=["2560", "S1", "S17", "4x300-overflow"])
+def test_ssd_kernel_holds_to_f64_oracle_at_chunk_edges(cuda_device, dtype, shape):
+    """The kernel within the stated check of the float64 recurrence
+    (``ref.check_ratio`` <= 1) for y and the final state, finite."""
+    b, s, h, p, n, g, dt_max = shape
+    x, dt, a_log, bm, cm = _ssd_inputs(cuda_device, dtype, b, s, h, p, n, g,
+                                       seed=s, dt_max=dt_max)
+    y, state = ssd_scan.ssd_scan_fwd(x, dt, a_log, bm, cm)
+    ry, rstate = ssd_ref.ssd_sequential_ref(x, dt, a_log, bm, cm)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    for got, want in ((y, ry), (state, rstate)):
+        assert torch.isfinite(got).all()
+        assert ssd_ref.check_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # b, s, h, p, n, g: the P tiles 32 and 16, N padded to the mma depth,
+    # G 2 and 4 read by index
+    (1, 130, 4, 32, 16, 2), (2, 70, 8, 16, 8, 4), (1, 100, 2, 48, 24, 1),
+], ids=["p32-n16-g2", "p16-n8-g4", "p48-n24"])
+def test_ssd_bf16_kernel_holds_to_f64_oracle_at_narrow_widths(cuda_device, shape):
+    b, s, h, p, n, g = shape
+    x, dt, a_log, bm, cm = _ssd_inputs(cuda_device, torch.bfloat16, b, s, h, p,
+                                       n, g, seed=7)
+    y, state = ssd_scan.ssd_scan_fwd(x, dt, a_log, bm, cm)
+    ry, rstate = ssd_ref.ssd_sequential_ref(x, dt, a_log, bm, cm)
+    assert ssd_ref.check_ratio(y, ry) <= 1.0
+    assert ssd_ref.check_ratio(state, rstate) <= 1.0
+
+
+@pytest.mark.cuda
+def test_ssd_bf16_kernel_reads_strided_views(cuda_device):
+    """bf16: x as a slice of a wider projection, B/C as group slices of one
+    buffer, read in place; y and the state within the check."""
+    x, dt, a_log, _, _ = _ssd_inputs(cuda_device, torch.bfloat16, 2, 77)
+    wide = torch.randn(2, 77, 2, 128, device=cuda_device).bfloat16()
+    bm, cm = wide[:, :, :1], wide[:, :, 1:]
+    xs = torch.cat([x, x], dim=3)[..., :64]
+    y, state = ssd_scan.ssd_scan_fwd(xs, dt, a_log, bm, cm)
+    ry, rstate = ssd_ref.ssd_sequential_ref(xs, dt, a_log, bm, cm)
+    assert ssd_ref.check_ratio(y, ry) <= 1 and ssd_ref.check_ratio(state, rstate) <= 1
