@@ -58,7 +58,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    recurrentgemma, a 2560-token slot, 64 slots and a slot at position 0,
    each with the plan's splits and one forced split; the timed decode
    cases also print the forced single split's time, and the build prints
-   ptxas's registers and spill stores of every decode instantiation;
+   ptxas's registers and spill stores of every decode instantiation.
+   The span bodies at the spec lane's verify rows (four slots of K + 1
+   = 5 queries, alone at Q 5 and beside two chunk rows at Q 32; native
+   and int8 pools) against their plain versions and the oracle, timed
+   beside SDPA and the bound;
 4. full-width granite-8b (36 layers, d_model 4096, bf16, random weights
    from a seed), one model object for both waves:
    a. through ``UnifiedServeEngine(device="cuda")``: 8 requests of
@@ -77,7 +81,8 @@ Phases (each prints its own lines; any failure exits non-zero):
       and no plain path may have run; first tokens as in (a); tok/s, the
       device idle share (a profiled wave) and TTFT/TPOT p50/p95 from the
       merged trace;
-   c-e. the same stream over quantized pools, same model object: (c) the
+   c-e. four requests of the same stream (two heads and the two prompts
+      sharing their prefixes) over quantized pools, same model object: (c) the
       unified engine on an int8 pool, (d) on an fp8 pool, (e) the legacy
       engine on an int8 pool.  Each wave must launch the quantized paged
       bodies on its path (and the flash kernel on (e)), no native paged
@@ -94,6 +99,33 @@ Phases (each prints its own lines; any failure exits non-zero):
       EV_DECODE_TOKENS`` and the chunk tokens sum to the prompts; first
       tokens within ``MAMBA2_FIRST_TOKEN_TOL`` of ``forward()``'s argmax
       under ``kernel_mode="xla"``; tok/s, TTFT/TPOT, one profiled wave;
+   g. granite-8b through the unified engine's speculative lane, n-gram
+      drafts, K = 4, bf16 pool, greedy, traced: 8 requests of 200-512
+      tokens, half tiled from a motif, half random, 32 new tokens each;
+      then the same stream with drafts replayed from the non-spec
+      engine's own streams (random weights do not continue a motif, so
+      n-gram drafts are all rejected: the replay makes the lane commit
+      up to K + 1 tokens a dispatch, and must accept a quarter of them).  The native span kernel must have
+      launched and no decode kernel, other span body or plain path;
+      ``EV_SPEC_DRAFTED`` / ``EV_SPEC_ACCEPTED`` / ``EV_SPEC_K`` in the
+      merged ``.prv`` equal the engine's stats; every committed token
+      lies within ``SPEC_ORACLE_MARGIN`` of the argmax logit of
+      ``forward()`` over the committed context, and is that argmax
+      wherever the top-2 margin there is above it.  Prints the acceptance
+      rate, tok/s, rolled-back blocks and the first position where the
+      stream parts from the non-spec engine's on the same stream;
+   h. the same lane with a one-layer ``draft:granite-8b`` model (random
+      weights, on the card) over an int8 pool, 4 requests, then those 4
+      with drafts replayed from the int8 non-spec streams: the same
+      checks on the quantized span body (2q);
+   i. mamba2-370m (the model of (f)) through ``ContinuousServeEngine`` on
+      two prompts of equal length (one grouped B 2 prefill, each state
+      scattered to its slot) and then (f)'s stream: the SSD kernel
+      launched, no plain path, a prefill group of more than one prompt,
+      tokens held to ``forward()`` over the committed context as in (g)
+      at ``MAMBA2_FIRST_TOKEN_TOL``; token agreement with (f);
+   j. the same model through ``ServeEngine``: 4 prompts of 300 tokens
+      (one B 4 scan a layer), 32 tokens, the checks of (i);
 5. reduced granite (float32, 2 layers, full attention and a sliding
    window) through ``ContinuousServeEngine``, ``UnifiedServeEngine`` and
    ``ServeEngine`` with ``kernel_mode="pallas"`` (the CUDA kernels) and
@@ -135,6 +167,15 @@ FIRST_TOKEN_TOL = {"fp16": 0.1, "int8": 0.5, "fp8": 2.6}
 # (~137) is 1.0; two roundings and the drift through 48 layers ~1.3
 # (PERF.md, PR 16 prediction)
 MAMBA2_FIRST_TOKEN_TOL = 8.0
+# the spec lane's waves: K, and the top-2 logit margin of forward() over
+# the committed context above which a committed token must be forward()'s
+# argmax (fixed before the first card run: FIRST_TOKEN_TOL's gaps, 2.5x
+# for the bf16 pool's decode drift over 32 steps and 2x for int8's;
+# mamba2 keeps MAMBA2_FIRST_TOKEN_TOL).  The same numbers bound every
+# committed token's gap below forward()'s argmax logit: a drift that
+# cannot flip a margin above m leaves a gap of at most m
+SPEC_K = 4
+SPEC_ORACLE_MARGIN = {"fp16": 0.25, "int8": 1.0}
 CSRC = "src/repro_torch/kernels/attention/csrc/"
 KERNELS = ("paged_decode", "paged_span", "paged_decode_quant",
            "paged_span_quant", "flash_attention", "ssd_scan")
@@ -259,14 +300,21 @@ def bound_ms(dtype_name, q, kp, bt, starts, lens, window, *, g,
              quantized=False):
     """Least time for the work these inputs need: every attended K/V block
     read once per kv head (a quantized pool: its 1-byte codes and one f32
-    K and V scale per position), q read and out written once, tables read
-    once, against 4*D flops per (folded query row, attended key)."""
+    K and V scale per position), q read once at the valid query positions,
+    out written once there and over every ``row_len == 0`` row (zeros by
+    contract; a row's padding past ``row_len`` is neither read nor
+    written), tables read once, against 4*D flops per (folded query row,
+    attended key)."""
     bs, hkv, d = kp.shape[1], kp.shape[2], kp.shape[3]
-    item = q.element_size()
+    pos_bytes = q.shape[-2] * q.shape[-1] * q.element_size()  # one position
+    q_len = q.shape[1] if q.dim() == 4 else 1
     att = _attended(bt.cpu(), starts, lens, bs, window)
     per_key = 2 * (d * kp.element_size() + (4 if quantized else 0))
     kv_bytes = sum(blocks for blocks, _ in att) * bs * hkv * per_key
-    io_bytes = 2 * q.numel() * item + bt.numel() * 4 + 2 * len(starts) * 4
+    valid = sum(int(n) for n in lens)
+    zeroed = q_len * sum(1 for n in lens if int(n) == 0)
+    io_bytes = ((2 * valid + zeroed) * pos_bytes + bt.numel() * 4
+                + 2 * len(starts) * 4)
     flops = sum(sum(keys) for _, keys in att) * hkv * g * 4 * d
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -522,6 +570,73 @@ def quant_kernel_phase(torch, np):
         require(False, "quantized codes without scales were attended")
     del flush_buf
     return results
+
+
+def verify_rows_phase(torch, np):
+    """Kernels 2/2q at the spec lane's verify rows (waves (g), (h)):
+    four slots of K + 1 = 5 queries at decode positions 200-543 (Q 5, a
+    dispatch without chunk rows), and the same four beside two chunk rows
+    of 32 and 17 queries (Q 32: the verify rows hold 5 of 32).  bf16 q
+    over a native and an int8 pool, each against its plain version and
+    the float64 oracle, then timed beside SDPA and the byte bound.
+    Returns the extra keys of the kernels line."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.attention import paged
+    from repro_torch.kernels.attention import ref as attn_ref
+
+    rng = np.random.default_rng(7)
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    shape = dict(hkv=8, g=4, d=128, bs=16, w=34, nb=4096)
+    slots = [int(x) for x in rng.integers(200, 539, 4)]
+    extra = {}
+    for label, q_len, starts, lens in (
+            ("verify Q5", SPEC_K + 1, slots, [SPEC_K + 1] * 4),
+            ("verify+chunks Q32", 32, slots + [192, 416],
+             [SPEC_K + 1] * 4 + [32, 17])):
+        for kv_dtype in ("fp16", "int8"):
+            name = "paged_span" if kv_dtype == "fp16" else "paged_span_quant"
+            q, kp, vp, bt, st, ln = _case(torch, rng, torch.bfloat16,
+                                          b=len(starts), q_len=q_len,
+                                          starts=starts, lens=lens, **shape)
+            sc = {}
+            kd, vd = kp, vp
+            if kv_dtype == "int8":
+                kp, ks = quant.kv_quantize(kp, "int8")
+                vp, vs = quant.kv_quantize(vp, "int8")
+                sc = {"k_scales": ks, "v_scales": vs}
+                kd = quant.kv_dequantize(kp, ks, torch.bfloat16)
+                vd = quant.kv_dequantize(vp, vs, torch.bfloat16)
+            out = paged.paged_span_fwd(q, kp, vp, bt, st, ln, **sc)
+            ref = paged.paged_span_plain(q, kp, vp, bt, st, ln, **sc)
+            want = attn_ref.paged_span_ref(q, kp, vp, bt, st, ln, **sc)
+            valid = attn_ref.span_valid(ln, q_len, "cuda")
+            torch.cuda.synchronize()
+            err = ((out.float() - ref.float()).abs()
+                   * valid[..., None, None]).max().item()
+            ratio = attn_ref.check_ratio(out, want, valid=valid)
+            require(torch.isfinite(out).all().item(), f"{name} {label} non-finite")
+            require(err <= TOL["bfloat16"], f"{name} {label} err {err}")
+            require(ratio <= 1.0, f"{name} {label} oracle ratio {ratio}")
+            ms = time_ms(torch, lambda: paged.paged_span_fwd(
+                q, kp, vp, bt, st, ln, **sc), flush)
+            sdpa = time_ms(torch, sdpa_yardstick(torch, q, kd, vd, bt, starts,
+                                                 q_len, None), flush)
+            bound, by = bound_ms("bfloat16", q, kp, bt, starts, lens, None,
+                                 g=4, quantized=kv_dtype == "int8")
+            splits = paged.span_split_plan(len(starts), 8, q_len * 4, 34,
+                                           _sms(torch))
+            print(f"[smoke] {name} {kv_dtype} pool, bf16 q, {label} (rows "
+                  f"{lens}): max|kernel-plain| {err:.3e}, oracle ratio "
+                  f"{ratio:.3f}; kernel {ms:.4f} ms (plan: {splits[0]} tile, "
+                  f"{splits[1]} splits), sdpa {sdpa:.4f} ms, bound "
+                  f"{bound:.5f} ms ({by})")
+            key = "verify" if q_len == SPEC_K + 1 else "verify_chunks"
+            extra.setdefault(name, {}).update({
+                f"{key}_ms": ms, f"{key}_bound_ms": bound,
+                f"{key}_library_ms": sdpa})
+    del flush_buf
+    return extra
 
 
 def span_oracle_phase(torch, np):
@@ -992,7 +1107,10 @@ def served(out, reqs, gen, vocab):
 def full_width_phase(torch, np):
     """Phase 4: one full-width granite-8b, served by the unified engine
     (a) and by the grouped-prefill engine with the tracer on (b), then over
-    quantized pools: unified int8 (c) and fp8 (d), legacy int8 (e)."""
+    quantized pools: unified int8 (c) and fp8 (d), legacy int8 (e); then
+    the unified engine's speculative lane, n-gram drafts on a bf16 pool
+    (g) and draft-model drafts on an int8 pool (h), each followed by the
+    same stream with the non-spec streams replayed as drafts."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
@@ -1011,6 +1129,10 @@ def full_width_phase(torch, np):
                                unified_ref))
     quant_wave(torch, np, cfg, model, "unified", "fp8", unified_ref)
     quant_wave(torch, np, cfg, model, "legacy", "int8", legacy_ref)
+    ref = spec_wave(torch, np, cfg, model, "g", "ngram", "fp16", 8)
+    spec_wave(torch, np, cfg, model, "g", "replay", "fp16", 8, ref)
+    ref = spec_wave(torch, np, cfg, model, "h", "draft:granite-8b", "int8", 4)
+    spec_wave(torch, np, cfg, model, "h", "replay", "int8", 4, ref)
     del model
     torch.cuda.empty_cache()
     return launches
@@ -1137,11 +1259,13 @@ def legacy_wave(torch, np, cfg, model):
 
 
 def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
-    """Waves (c)-(e): the phase-4 stream through the ``kind`` engine over a
-    ``kv_dtype`` pool, same model object.  Counts zeroed just before the
-    counted run and read just after; ``ref`` is the bf16 wave's greedy
-    streams of the same engine.  Each wave then runs one profiled
-    window.  Returns the quantized launch counts."""
+    """Waves (c)-(e): four requests of the phase-4 stream (two heads and
+    the two prompts sharing their prefixes; cut from eight to keep the
+    run near 8 minutes) through the ``kind`` engine over a ``kv_dtype``
+    pool, same model object.  Counts zeroed just before the counted run
+    and read just after; ``ref`` is the bf16 wave's greedy streams of the
+    same engine.  Each wave then runs one profiled window.  Returns the
+    quantized launch counts."""
     from repro_torch.kernels.attention import flash, ops, paged
     from repro_torch.serve.engine import ContinuousServeEngine
     from repro_torch.serve.step import UnifiedServeEngine
@@ -1154,8 +1278,10 @@ def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
     eng.run()
     require(len(warm.tokens) == 2, "quantized warm-up request did not finish")
     storage = str(eng.kv_storage).removeprefix("torch.")
-    lens, prompts = shared_prefix_stream(np.random.default_rng(1), np,
-                                         cfg.vocab_size, bs)
+    _, prompts = shared_prefix_stream(np.random.default_rng(1), np,
+                                      cfg.vocab_size, bs)
+    pick = (0, 1, 4, 5)  # requests 4 and 5 share the heads 0 and 1's prefixes
+    prompts, ref = [prompts[i] for i in pick], [ref[i] for i in pick]
     stats0 = dict(eng.stats)
     ops.reset_counts()
     torch.cuda.synchronize()
@@ -1196,7 +1322,7 @@ def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
     check_first_tokens(torch, model, cfg, prompts,
                        [out[r.rid][0] for r in reqs], f"{what}, full width",
                        tol=FIRST_TOKEN_TOL[kv_dtype])
-    profile_window(torch, eng, [p[:256] for p in prompts[:4]], gen, what)
+    profile_window(torch, eng, [p[:256] for p in prompts], gen, what)
     del eng
     torch.cuda.empty_cache()
     return {k: launches[k] for k in ("paged_decode_quant", "paged_span_quant")}
@@ -1205,7 +1331,8 @@ def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
 def mamba2_wave(torch, np):
     """Wave (f): full-width mamba2-370m through the unified engine on the
     phase-4 stream, traced and flushed into a merged ``.prv``; a profiled
-    wave first (also the warm-up).  Returns the SSD kernel's launches."""
+    wave first (also the warm-up); then waves (i) and (j) on the same
+    model.  Returns the SSD kernel's launches of wave (f)."""
     from repro_torch import core as xtrace
     from repro_torch.configs import get_config
     from repro_torch.core import events as ev
@@ -1302,9 +1429,280 @@ def mamba2_wave(torch, np):
                        cfg, prompts, [out[r.rid][0] for r in reqs],
                        "mamba2, full width (forward under kernel_mode xla)",
                        tol=MAMBA2_FIRST_TOKEN_TOL)
-    del eng, model
+    del eng
+    mamba2_engine_waves(torch, np, cfg, model, prompts,
+                        [out[r.rid] for r in reqs])
+    del model
     torch.cuda.empty_cache()
     return {"ssd_scan": launches}
+
+
+def spec_stream(rng, np, vocab, n):
+    """n prompts of 200-512 tokens: the even ones tiled from a 7-token
+    motif (n-gram drafts accepted), the odd ones random (rejected)."""
+    lens = [int(x) for x in rng.integers(200, 513, n)]
+    prompts = []
+    for i, length in enumerate(lens):
+        if i % 2 == 0:
+            motif = rng.integers(0, vocab, (7,)).astype(np.int32)
+            prompts.append(np.tile(motif, -(-length // 7))[:length])
+        else:
+            prompts.append(rng.integers(0, vocab, (length,)).astype(np.int32))
+    return lens, prompts
+
+
+def oracle_check(torch, np, model, cfg, prompts, streams, what, margin):
+    """Greedy full recompute over the COMMITTED context: one ``forward()``
+    of each prompt plus its committed tokens gives the logits after every
+    prefix.  Every committed token's logit must lie within ``margin`` of
+    the argmax logit there, and wherever the top-2 margin exceeds
+    ``margin`` (stated before the first card run) it must be the argmax.
+    Returns (steps held to the argmax, steps under the margin)."""
+    checked = under = 0
+    worst = 0.0
+    with torch.inference_mode():
+        for p, toks in zip(prompts, streams):
+            toks = np.asarray(toks)
+            ctx = np.concatenate([p, toks[:-1]]).astype(np.int32)
+            lg = model(torch.tensor(ctx, device="cuda")[None])[
+                0, len(p) - 1:, :cfg.vocab_size].float()
+            require(torch.isfinite(lg).all().item(), f"{what}: non-finite logits")
+            top2 = lg.topk(2, dim=-1).values
+            got = lg.gather(1, torch.as_tensor(toks, device="cuda").long()[:, None])
+            gap = (top2[:, 0] - got[:, 0]).cpu().numpy()
+            far = np.nonzero(gap > margin)[0]
+            require(len(far) == 0, f"{what}: committed token {toks[far[:1]]} "
+                    f"lies {gap[far[:1]]} below forward's argmax logit at step "
+                    f"{far[:1]} (tol {margin})")
+            worst = max(worst, float(gap.max()))
+            sure = ((top2[:, 0] - top2[:, 1]) > margin).cpu().numpy()
+            arg = lg.argmax(-1).cpu().numpy()
+            bad = np.nonzero(sure & (arg != toks))[0]
+            require(len(bad) == 0, f"{what}: committed token {toks[bad[:1]]} "
+                    f"!= forward argmax {arg[bad[:1]]} at step {bad[:1]} with a "
+                    f"top-2 margin above {margin}")
+            checked += int(sure.sum())
+            under += int((~sure).sum())
+    print(f"[smoke] {what} vs forward() over the committed context: all "
+          f"{checked + under} committed tokens within {worst:.4f} of the "
+          f"argmax logit (tol {margin}); {checked} steps with a top-2 margin "
+          f"> {margin} all the argmax, {under} under it")
+    return checked, under
+
+
+def first_part(np, a, b):
+    """(request, position) where two sets of streams first differ, or
+    None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        diff = np.nonzero(np.asarray(x) != np.asarray(y))[0]
+        if len(diff):
+            return i, int(diff[0])
+    return None
+
+
+class ReplayProposer:
+    """Drafts the non-spec engine's own greedy continuation of each
+    request (found by its prompt): nearly every draft is accepted until
+    bf16 noise parts the streams, so the lane commits K + 1 tokens a
+    dispatch at full width.  A point-mass proposal, as the n-gram one."""
+
+    def __init__(self, np, prompts, streams):
+        self.np, self.prompts, self.streams = np, prompts, streams
+
+    def reset_slot(self, slot):
+        pass
+
+    def propose(self, slots, contexts, k):
+        np = self.np
+        drafts = np.zeros((len(slots), k), np.int32)
+        for i, ctx in enumerate(contexts):
+            j = next(j for j, p in enumerate(self.prompts)
+                     if len(ctx) >= len(p) and (ctx[:len(p)] == p).all())
+            cont = self.streams[j][len(ctx) - len(self.prompts[j]):][:k]
+            drafts[i, :len(cont)] = cont
+        return drafts, None
+
+
+def spec_wave(torch, np, cfg, model, label, kind, kv_dtype, n_req, ref=None):
+    """Waves (g) and (h): the speculative lane of the unified engine
+    (``kind`` "ngram", "draft:granite-8b" or "replay": the ReplayProposer,
+    K = SPEC_K, greedy) over a ``kv_dtype`` pool, traced and flushed into
+    a merged ``.prv``; the non-spec unified engine first serves the same
+    stream (outside the counted run; ``ref`` passes its streams in) for
+    the first position where the two part.  Returns those streams."""
+    from repro_torch import core as xtrace
+    from repro_torch.core import events as ev
+    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.serve.spec import make_proposer
+    from repro_torch.serve.step import UnifiedServeEngine
+
+    gen, bs, slots = 32, 16, 4
+    ecfg = cfg.replace(kv_dtype=kv_dtype)
+    lens, prompts = spec_stream(np.random.default_rng(5), np, cfg.vocab_size,
+                                n_req)
+    kw = dict(device="cuda", num_slots=slots, max_len=512 + gen, block_size=bs)
+    if ref is None:
+        ref_eng = UnifiedServeEngine(ecfg, model, **kw)
+        rr = [ref_eng.submit(p, gen) for p in prompts]
+        ref_out = ref_eng.run()
+        ref = [ref_out[r.rid] for r in rr]
+        del ref_eng
+    with tempfile.TemporaryDirectory() as tmp:
+        base = pathlib.Path(tmp) / "serve"
+        tracer = xtrace.Tracer(f"chip-smoke-spec-{label}").init()
+        prop = (ReplayProposer(np, prompts, ref) if kind == "replay"
+                else make_proposer(kind, cfg, num_slots=slots,
+                                   max_len=512 + gen, device="cuda"))
+        eng = UnifiedServeEngine(ecfg, model, spec=prop, spec_k=SPEC_K,
+                                 tracer=tracer, flush_every=16,
+                                 flush_base=base, **kw)
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, gen) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        w = ops.paged_span_attention
+        span = w.launches if kv_dtype == "fp16" else w.quant_launches
+        other_span = w.quant_launches if kv_dtype == "fp16" else w.launches
+        decode = ops.paged_attention.launches + ops.paged_attention.quant_launches
+        draft_flash = ops.flash_attention.launches
+        plain = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
+                 + flash.flash_attention_plain.calls)
+        segments = list(tracer.segments)
+        paths = xtrace.write_prv(tracer.finish(), base, segments=segments)
+        evs = xtrace.parse_prv(paths["prv"]).events
+        sums = {c: int(evs[evs["type"] == c]["value"].astype(np.int64).sum())
+                for c in (ev.EV_SPEC_DRAFTED, ev.EV_SPEC_ACCEPTED)}
+        n_disp = int((evs["type"] == ev.EV_SPEC_K).sum())
+    served(out, reqs, gen, cfg.vocab_size)
+    st = eng.stats
+    streams = [out[r.rid] for r in reqs]
+    tokens = sum(len(t) for t in streams)
+    what = f"spec ({label}) {kind} {kv_dtype}"
+    rate = st["spec_accepted"] / max(st["spec_drafted"], 1)
+    part = first_part(np, streams, ref)
+    print(f"[smoke] {what}: served {len(reqs)} requests (prompts {lens}), "
+          f"{tokens} tokens in {seconds:.2f}s = {tokens / seconds:.1f} tok/s; "
+          f"{st['spec_dispatches']} verify dispatches, {st['spec_accepted']}/"
+          f"{st['spec_drafted']} drafts accepted ({rate:.1%}), "
+          f"{st['spec_rollback_blocks']} blocks rolled back, K={eng._spec_k}; "
+          f"first position where spec and non-spec part: "
+          f"{'none' if part is None else f'request {part[0]}, token {part[1]}'}")
+    print(f"[smoke] {what} kernel launches: span {span}, other span body "
+          f"{other_span}, decode {decode}, flash (draft prefill) {draft_flash}; "
+          f"plain-path calls {plain}; engine dispatch counts "
+          f"{st['kernel_dispatch']}; merged .prv: {len(segments)} segments, "
+          f"EV_SPEC_K x{n_disp}, EV_SPEC_DRAFTED sum "
+          f"{sums[ev.EV_SPEC_DRAFTED]}, EV_SPEC_ACCEPTED sum "
+          f"{sums[ev.EV_SPEC_ACCEPTED]}")
+    require(span > 0, f"{what}: the span kernel never launched")
+    require(decode == 0 and other_span == 0,
+            f"{what}: {decode} decode / {other_span} other span launches")
+    require(plain == 0, f"{what}: plain path ran {plain} times")
+    require(st["spec_dispatches"] > 0, f"{what}: no verify dispatch")
+    require(st["spec_accepted"] <= st["spec_drafted"],
+            f"{what}: accepted {st['spec_accepted']} > drafted")
+    require(n_disp == st["spec_dispatches"]
+            and sums[ev.EV_SPEC_DRAFTED] == st["spec_drafted"]
+            and sums[ev.EV_SPEC_ACCEPTED] == st["spec_accepted"],
+            f"{what}: merged .prv spec counters {sums} x{n_disp} != stats")
+    if kind == "replay":
+        # drafts past the point where bf16 noise parts a stream from the
+        # non-spec one are rejected, so only a quarter is required
+        require(st["spec_accepted"] >= st["spec_drafted"] // 4 > 0,
+                f"{what}: replayed drafts mostly rejected")
+    oracle_check(torch, np, model, cfg, prompts, streams, what,
+                 SPEC_ORACLE_MARGIN[kv_dtype])
+    del eng, prop
+    torch.cuda.empty_cache()
+    return ref
+
+
+def mamba2_engine_waves(torch, np, cfg, model, prompts, unified_out):
+    """Waves (i) and (j): full-width mamba2-370m through the grouped-
+    prefill ``ContinuousServeEngine`` on two random prompts of 300 tokens
+    (admitted together: one B 2 prefill group) and then wave (f)'s
+    stream, then the
+    fixed-batch ``ServeEngine`` on 4 prompts of 300 tokens (one B 4
+    prefill launch per layer); counts zeroed just before each and read
+    just after; tokens held to forward() over the committed context
+    (kernel_mode xla)."""
+    from repro_torch.kernels.attention import flash, paged
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import scan as ssd_scan
+    from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine
+
+    gen = 32
+    oracle_model = model.serving_view(cfg.replace(kernel_mode="xla"))
+
+    def counts():
+        return (ssd_ops.ssd_scan.launches, ssd_scan.ssd_chunked_plain.calls,
+                paged.paged_decode_plain.calls + paged.paged_span_plain.calls
+                + flash.flash_attention_plain.calls)
+
+    eng = ContinuousServeEngine(cfg, model, device="cuda", num_slots=4,
+                                max_len=512 + gen, max_prefills_per_iter=4)
+    ssd_ops.reset_counts()
+    plain_attn0 = counts()[2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pair = [np.random.default_rng(6).integers(0, cfg.vocab_size, (300,))
+            .astype(np.int32) for _ in range(2)]
+    wave = pair + list(prompts)
+    reqs = [eng.submit(p, gen) for p in wave]
+    out = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, plain, plain_attn = counts()
+    plain_attn -= plain_attn0
+    served(out, reqs, gen, cfg.vocab_size)
+    streams = [out[r.rid] for r in reqs]
+    st = eng.stats
+    groups = st["host_syncs"] - st["decode_syncs"]  # one fetch per group
+    match = float(np.mean([(a == b).mean()
+                           for a, b in zip(streams[len(pair):], unified_out)]))
+    print(f"[smoke] mamba2 legacy (i): served {len(reqs)} requests, "
+          f"{st['tokens_decoded']} tokens in {seconds:.2f}s = "
+          f"{st['tokens_decoded'] / seconds:.1f} tok/s; {st['prefills']} "
+          f"whole-prompt prefills in {groups} "
+          f"groups, {st['decode_dispatches']} decode bursts; ssd_scan "
+          f"{launches} launches, plain SSD {plain}, plain attention "
+          f"{plain_attn}; greedy token agreement with wave (f) {match:.3f}")
+    require(eng.pool is None, "mamba2 legacy engine holds a block pool")
+    require(launches > 0, "the SSD scan kernel never launched on wave (i)")
+    require(st["prefills"] == len(wave) and groups < len(wave),
+            f"wave (i): {st['prefills']} prefills in {groups} groups, none "
+            f"of more than one prompt")
+    require(plain == 0 and plain_attn == 0,
+            f"plain path ran on wave (i): {plain} SSD, {plain_attn} attention")
+    oracle_check(torch, np, oracle_model, cfg, wave, streams,
+                 "mamba2 legacy (i)", MAMBA2_FIRST_TOKEN_TOL)
+    del eng
+    batch = np.stack([p[:300] for p in prompts[:4]])
+    static = ServeEngine(cfg, model, device="cuda", max_len=300 + gen)
+    ssd_ops.reset_counts()
+    plain_attn0 = counts()[2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = static.generate(batch, num_tokens=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    s_launches, s_plain, s_plain_attn = counts()
+    s_plain_attn -= plain_attn0
+    require(got.shape == (4, gen) and ((got >= 0) & (got < cfg.vocab_size)).all(),
+            f"wave (j) returned {got.shape}")
+    print(f"[smoke] mamba2 fixed batch (j): 4 prompts x 300 tokens, {got.size} "
+          f"tokens in {seconds:.2f}s = {got.size / seconds:.1f} tok/s, "
+          f"{static.host_syncs} host syncs; ssd_scan {s_launches} launches "
+          f"(B 4), plain SSD {s_plain}, plain attention {s_plain_attn}")
+    require(s_launches > 0, "the SSD scan kernel never launched on wave (j)")
+    require(s_plain == 0 and s_plain_attn == 0,
+            f"plain path ran on wave (j): {s_plain} SSD, {s_plain_attn} attention")
+    oracle_check(torch, np, oracle_model, cfg, list(batch), list(got),
+                 "mamba2 fixed batch (j)", MAMBA2_FIRST_TOKEN_TOL)
+    return launches, s_launches
 
 
 def profile_window(torch, eng, prompts, gen, label):
@@ -1555,6 +1953,8 @@ def main() -> int:
     ratios = timed("paged span oracle", span_oracle_phase)
     timings["paged_span"]["oracle_ratio"] = ratios["fp16"]
     timings["paged_span_quant"]["oracle_ratio"] = ratios["int8"]
+    for name, keys in timed("span verify rows", verify_rows_phase).items():
+        timings[name].update(keys)
     ratios = timed("paged decode oracle", decode_oracle_phase)
     timings["paged_decode"]["oracle_ratio"] = ratios["fp16"]
     timings["paged_decode_quant"]["oracle_ratio"] = ratios["int8"]
@@ -1572,8 +1972,8 @@ def main() -> int:
                     bound_ms=timings[name]["bound_ms"],
                     bound_by=timings[name]["bound_by"],
                     library_ms=timings[name]["library_ms"],
-                    **({"oracle_ratio": timings[name]["oracle_ratio"]}
-                       if "oracle_ratio" in timings[name] else {}))
+                    **{k: v for k, v in timings[name].items()
+                       if k == "oracle_ratio" or k.startswith("verify")})
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)

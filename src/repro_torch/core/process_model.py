@@ -8,7 +8,7 @@ Extrae.jl).  Mapping policies provided here:
   * "single"          — one task, threads = host threads (the default);
   * "jax_process" / "mesh_data" — the JAX package's multi-host and mesh
                         mappings; the port has no process mesh yet, so they
-                        raise (ROADMAP item 3: tensor parallelism);
+                        raise (see the ROADMAP's tensor-parallelism item);
   * "host_device"     — host x device: TASK = a host-level process in a
                         multi-process serving fleet (the router is task 0,
                         engine replica r contributes its mesh-task extent at
@@ -53,7 +53,8 @@ class ProcessModel:
         elif mode in ("jax_process", "mesh_data"):
             raise NotImplementedError(
                 f"process-model mode {mode!r} maps a multi-host or mesh "
-                f"program; the torch port has no mesh yet (ROADMAP item 3)")
+                f"program; the torch port has no mesh yet (ROADMAP: tensor "
+                f"parallelism)")
         elif mode == "host_device":
             # configured later via bind_host()
             self._task_id_fn = lambda: 0

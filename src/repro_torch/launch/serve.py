@@ -9,6 +9,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mamba2-370m --requests 4 --slots 2 --prompt-len 12 --gen 4
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --spec ngram --spec-k 4 --spec-adaptive
+
 Takes the flags and defaults of ``python -m repro.launch.serve`` for the
 single-engine paths and serves ``reduced(get_config(arch))`` with random
 weights from ``--seed`` through ``--mode unified``
@@ -24,11 +27,15 @@ or, explicitly, the CPU.  ``--kv-dtype int8|fp8`` quantizes the paged
 pool of the unified and continuous modes (the pool line prints its
 storage and bytes per token); ``--mode static`` keeps contiguous caches
 in the model dtype, as the JAX CLI does.  ``--arch`` takes the dense
-family and mamba2-370m (ssm), which serves in ``--mode unified`` only:
-whole-prompt admission through the SSD scan kernel, no pool and no
-prefix cache (the unified-step line says so and no pool line is
-printed).  Flags of paths not ported yet
-(meshes, replicas, speculative decoding, forks, beams, sessions, the
+family and mamba2-370m (ssm), which every mode serves: whole-prompt
+admission through the SSD scan kernel, no pool and no prefix cache (the
+unified-step line says so and no pool line is printed).  ``--spec
+ngram|draft:<arch>`` turns on the speculative lane of ``--mode unified``
+(``--spec-k`` drafts a slot, ``--spec-adaptive`` walks K with the
+acceptance rate; a ``draft:`` model is the one-layer reduced ``<arch>``
+with random weights from ``--seed + 1``, on ``--device``) and prints the
+draft economy, read again from the trace under ``--trace``.  Flags of
+paths not ported yet (meshes, replicas, forks, beams, sessions, the
 two-deep overlap pipeline) stop with an error naming the flag.
 """
 from __future__ import annotations
@@ -43,7 +50,7 @@ import numpy as np
 # path that is not ported yet
 _PORTED_VALUES = {
     "mesh": ("",), "mp": (0,), "n": (1,), "best_of": (0,), "beam": (0,),
-    "session": (False,), "spec": ("",),
+    "session": (False,),
     "overlap": ("", "off", "auto"), "replicas": (0,), "disaggregate": (False,),
 }
 
@@ -108,12 +115,14 @@ def main(argv=None):
                     f"repro_torch yet (single-engine paths only)")
     if args.flush_every and not args.trace:
         p.error("--flush-every streams the trace and requires --trace")
+    if args.spec and args.mode != "unified":
+        p.error("--spec is a unified-engine lane (--mode unified)")
 
     from repro_torch import core as xtrace
     from repro_torch.configs import all_arch_names, get_config, reduced
     from repro_torch.models.model import build_model
-    from repro_torch.serve.engine import (NEXT_SLICE, ContinuousServeEngine,
-                                          ServeEngine)
+    from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine
+    from repro_torch.serve.spec import make_proposer
     from repro_torch.serve.step import UnifiedServeEngine
 
     if args.arch not in all_arch_names():
@@ -123,8 +132,6 @@ def main(argv=None):
     if cfg.family not in ("dense", "ssm"):
         p.error(f"--arch {args.arch} is family {cfg.family!r}; repro_torch "
                 f"serves the dense and ssm families only")
-    if cfg.family == "ssm" and args.mode != "unified":
-        p.error(f"--arch {args.arch} --mode {args.mode}: {NEXT_SLICE}")
     if args.kernel_mode:
         cfg = cfg.replace(kernel_mode=args.kernel_mode)
     if args.kv_dtype:
@@ -156,10 +163,17 @@ def main(argv=None):
             seed=args.seed, flush_every=args.flush_every,
             flush_base=out / "serve" if args.flush_every else None)
         if args.mode == "unified":
+            spec = {}
+            if args.spec:
+                spec = dict(spec=make_proposer(
+                    args.spec, cfg, num_slots=slots, max_len=max_len,
+                    temperature=args.temperature, top_k=args.top_k,
+                    top_p=args.top_p, seed=args.seed, device=args.device),
+                    spec_k=args.spec_k, spec_adaptive=args.spec_adaptive)
             engine = UnifiedServeEngine(
                 cfg, model, max_step_tokens=args.max_step_tokens or None,
                 chunk_size=args.chunk_size or None, chunk_rows=args.chunk_rows,
-                mixed_burst=args.mixed_burst, **common)
+                mixed_burst=args.mixed_burst, **spec, **common)
         else:
             engine = ContinuousServeEngine(cfg, model, **common)
         # staggered prompt lengths exercise variable-length admission
@@ -190,6 +204,15 @@ def main(argv=None):
         print(f"[serve] unified step: budget {engine.max_step_tokens} "
               f"tokens/iteration, chunk {engine.chunk_size} "
               f"(chunked prefill {note})")
+        if args.spec:
+            st = engine.stats
+            drafted = max(st["spec_drafted"], 1)
+            print(f"[serve] speculative ({args.spec}): "
+                  f"{st['spec_dispatches']} verify dispatches, "
+                  f"{st['spec_accepted']}/{st['spec_drafted']} drafts "
+                  f"accepted ({st['spec_accepted'] / drafted:.0%}), "
+                  f"{st['spec_rollback_blocks']} blocks rolled back, "
+                  f"K={engine._spec_k}")
     if tracer:
         segments = list(tracer.segments)
         trace = xtrace.finish()
@@ -208,6 +231,12 @@ def main(argv=None):
                   f"TTFT p50 {t['p50']:.0f}us / p95 {t['p95']:.0f}us / "
                   f"max {t['max']:.0f}us; TPOT p50 {o['p50']:.0f}us / "
                   f"p95 {o['p95']:.0f}us")
+        if lat["spec"]["dispatches"]:
+            sp = lat["spec"]
+            print(f"[serve] spec (from trace): {sp['accepted']}/"
+                  f"{sp['drafted']} drafts accepted "
+                  f"({sp['acceptance']:.0%}) over {sp['dispatches']} "
+                  f"verify dispatches")
     return 0
 
 

@@ -192,6 +192,13 @@ class DecoderLM(nn.Module):
                              f"{self.cfg.name!r} carries ssm state")
 
     # ------------------------------------------------------------------
+    def cache_specs(self, batch: int, max_len: int):
+        """Contiguous (ring under a sliding window) caches of ``batch``
+        rows, as :meth:`prefill` builds them: name -> (shape, dtype).
+        Attention stacks only."""
+        self._attention_only("cache_specs")
+        return tf_mod.stack_cache_spec(self.cfg, batch, max_len, self.dtype)
+
     def paged_cache_specs(self, num_slots: int, num_blocks: int, block_size: int):
         """The engine's cache leaves: name -> (shape, dtype).  Dense:
         {"k", "v"} [L, NB, bs, Hkv, D], plus {"k_scale", "v_scale"}

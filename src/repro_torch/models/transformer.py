@@ -137,3 +137,13 @@ def stack_state_spec(cfg, num_slots: int, dtype):
     shape ``[layers, num_slots, ...]``."""
     return {n: ((cfg.num_layers,) + shape, dt) for n, (shape, dt)
             in ssm.mamba2_state_spec(cfg, num_slots, dtype).items()}
+
+
+def stack_cache_spec(cfg, batch: int, max_len: int, dtype):
+    """Contiguous caches of a dense stack: {"k", "v"} -> (shape, dtype),
+    shape ``[layers, batch, C, Hkv, D]`` with C = ``max_len``, or the
+    window under a sliding window (a ring, as prefill builds it)."""
+    c = max_len if cfg.attention_window is None else min(
+        max_len, cfg.attention_window)
+    shape = (cfg.num_layers, batch, c, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": (shape, dtype), "v": (shape, dtype)}

@@ -23,8 +23,11 @@ contiguous equivalence oracle of the paged engines.
 A state-carrying family (ssm: mamba2) has no pooled leaf: the engine then
 holds no block pool (``pool`` None, ``kv_bytes_per_token`` 0, no prefix
 cache, no admission policy) and its slot-indexed decode state is written
-at the admitted slots.  Only the unified engine serves it; this engine's
-:meth:`ContinuousServeEngine.run` and :class:`ServeEngine` refuse it.
+at the admitted slots.  Every engine serves it: this one prefills each
+admitted same-length group in one batch through the SSD scan kernel and
+decodes the state in bursts (a group holds only prompts of one length,
+so no padding enters a state); :class:`ServeEngine` prefills the
+rectangular batch and advances the state in lockstep.
 
 Not ported (raise or are absent): the mesh and its trace replay, the
 two-deep ``overlap`` pipeline, sessions, CoW fan-out and the prefix
@@ -62,9 +65,6 @@ from repro_torch.serve.queue import Request, RequestQueue, _now_ns
 from repro_torch.serve.scheduler import Scheduler
 
 EV_TOKENS_DECODED = 84_001  # user event: tokens decoded so far (one run)
-NEXT_SLICE = ("the ssm family is served by the unified engine only; the "
-              "grouped-prefill and fixed-batch engines take it in the next "
-              "slice of the port")
 
 
 class ContinuousServeEngine:
@@ -619,8 +619,6 @@ class ContinuousServeEngine:
         fetch overlaps device work and retirement lags the device by one
         burst.  A preemption flushes the pipeline first: a victim's
         in-flight tokens must drain before it is requeued."""
-        if self.cfg.family == "ssm":
-            raise NotImplementedError(NEXT_SLICE)
         tr = self.tracer
         done0 = len(self.scheduler.completed)
         inflight: collections.deque = collections.deque()  # unfetched bursts
@@ -636,10 +634,11 @@ class ContinuousServeEngine:
                     self._do_prefill(members)
                 self.stats["peak_active"] = max(self.stats["peak_active"],
                                                 self.scheduler.occupancy())
-                self.stats["peak_blocks"] = max(self.stats["peak_blocks"],
-                                                self.pool.num_active())
-                self.stats["peak_shared"] = max(self.stats["peak_shared"],
-                                                self.pool.num_shared())
+                if self.pool is not None:
+                    self.stats["peak_blocks"] = max(self.stats["peak_blocks"],
+                                                    self.pool.num_active())
+                    self.stats["peak_shared"] = max(self.stats["peak_shared"],
+                                                    self.pool.num_shared())
                 dispatched = None
                 pairs = [(s, r) for s, r in self.scheduler.active()
                          if self._active[s]]
@@ -705,14 +704,13 @@ class ServeEngine:
     The paged engines' equivalence oracle: the contiguous cache layout
     (ring-arranged under a sliding window) survives only here.  Sampling
     follows each decode step on the device; the loop fetches every token
-    (one host sync per token).  ``model`` is a :class:`DecoderLM` on
-    ``device`` (CUDA unless the caller asks for the CPU); None builds a
-    seeded random one there."""
+    (one host sync per token).  An ssm stack's prefill returns its decode
+    state, which each step advances in place.  ``model`` is a
+    :class:`DecoderLM` on ``device`` (CUDA unless the caller asks for the
+    CPU); None builds a seeded random one there."""
 
     def __init__(self, cfg: ModelConfig, model: DecoderLM | None = None, *,
                  device="cuda", max_len: int, tracer=None):
-        if cfg.family == "ssm":
-            raise NotImplementedError(NEXT_SLICE)
         self.cfg = cfg
         self.device = resolve_device(device)
         if model is None:

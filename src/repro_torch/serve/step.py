@@ -31,10 +31,25 @@ The run loop keeps the JAX engine's one-deep pipeline: dispatch N+1 is
 planned and enqueued on the card's stream before dispatch N's tokens are
 fetched, so the fetch (the one host sync) overlaps device compute.
 
-Not ported yet (raise ``NotImplementedError``): the speculative lane
-(``spec=``), n-way CoW fan-out (``n_samples > 1``), sessions and beam
-search.  Per-iteration ``EV_STEP_BUDGET`` / ``EV_CHUNK_TOKENS`` /
-``EV_DECODE_TOKENS`` counters go to the ``tracer`` when one is given.
+**Speculative decoding** (``spec=`` a :mod:`repro_torch.serve.spec`
+proposer) turns the decode lane into verified spans: each decode-active
+slot proposes up to ``K`` drafts, and ONE span pass per dispatch
+(``DecoderLM.span_step``, the ragged span kernel) scores all ``K + 1``
+positions of every slot, with the prefill chunk rows in the same batch;
+:func:`repro_torch.core.sampling.spec_accept` commits the accepted prefix
+plus one correction or bonus token on the device.  Rejected drafts leave
+K/V past the committed frontier, which the next span overwrites before
+any query attends it; trailing blocks holding only such residue go back
+to the pool after each dispatch.  Draft + verify positions are charged
+against ``max_step_tokens``, each dispatch is fetched synchronously (the
+next drafts need its tokens), and ``EV_SPEC_DRAFTED`` /
+``EV_SPEC_ACCEPTED`` / ``EV_SPEC_K`` are emitted per dispatch.
+``spec_adaptive`` walks ``K`` with an EMA of the acceptance rate.
+
+Not ported yet (raise ``NotImplementedError``): n-way CoW fan-out
+(``n_samples > 1``), sessions and beam search.  Per-iteration
+``EV_STEP_BUDGET`` / ``EV_CHUNK_TOKENS`` / ``EV_DECODE_TOKENS`` counters
+go to the ``tracer`` when one is given.
 """
 from __future__ import annotations
 
@@ -47,9 +62,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import events as ev
-from repro_torch.core.sampling import sample_logits
+from repro_torch.core.sampling import sample_logits, spec_accept
 from repro_torch.serve.block_pool import NULL_BLOCK
-from repro_torch.serve.engine import ContinuousServeEngine
+from repro_torch.serve.engine import EV_TOKENS_DECODED, ContinuousServeEngine
 from repro_torch.serve.queue import Request, _now_ns
 
 
@@ -78,10 +93,8 @@ class UnifiedServeEngine(ContinuousServeEngine):
 
     def __init__(self, cfg, model=None, *, max_step_tokens: int | None = None,
                  chunk_size: int | None = None, chunk_rows: int = 2,
-                 mixed_burst: int = 4, spec=None, **kwargs):
-        if spec is not None:
-            raise NotImplementedError(
-                "the speculative decoding lane is not ported yet")
+                 mixed_burst: int = 4, spec=None, spec_k: int = 4,
+                 spec_adaptive: bool = False, **kwargs):
         super().__init__(cfg, model, **kwargs)
         self.chunk_size = int(chunk_size or max(2 * self.block_size, 16))
         if self.chunk_size < 1:
@@ -108,6 +121,23 @@ class UnifiedServeEngine(ContinuousServeEngine):
             for code in (ev.EV_STEP_BUDGET, ev.EV_CHUNK_TOKENS,
                          ev.EV_DECODE_TOKENS):
                 self.tracer.register(code, ev.SERVE_CTR_LABELS[code])
+        # speculative decoding: draft/verify spans through the span path
+        self.spec = spec
+        self.spec_k_max = max(1, int(spec_k))
+        self.spec_adaptive = bool(spec_adaptive)
+        self._spec_k = self.spec_k_max  # current width (adaptive shrinks it)
+        self._accept_ema = 1.0  # optimistic start: first dispatches run wide
+        if spec is not None:
+            if not self.chunkable:
+                raise ValueError(
+                    "speculative decoding needs the fully-paged span path "
+                    f"(dense/moe families); {cfg.family!r} cannot run it")
+            self.stats.update(spec_dispatches=0, spec_drafted=0,
+                              spec_accepted=0, spec_rollback_blocks=0)
+            if self.tracer is not None:
+                for code in (ev.EV_SPEC_DRAFTED, ev.EV_SPEC_ACCEPTED,
+                             ev.EV_SPEC_K):
+                    self.tracer.register(code, ev.SERVE_CTR_LABELS[code])
 
     # ------------------------------------------------------------------
     # one dispatch: decode sub-batch + chunk sub-batch
@@ -133,6 +163,16 @@ class UnifiedServeEngine(ContinuousServeEngine):
                                device=self.device)
         if not chunks:
             return tok, idx, toks, None
+        ck_tokens, ck_start, ck_len, ck_slot = self._pack_chunks(chunks)
+        logits = self.model.span_step(self._caches, ck_tokens, ck_start,
+                                      ck_len, tables[ck_slot])
+        tok, idx, ck_tok = self._fold_chunk_rows(logits, chunks, ck_len,
+                                                 tok, idx)
+        return tok, idx, toks, ck_tok
+
+    def _pack_chunks(self, chunks: list[ChunkPlan]):
+        """The chunk plans as fixed-shape device rows: tokens
+        [chunk_rows, chunk_size], start, length and slot [chunk_rows]."""
         rows = self.chunk_rows
         ck_tokens = np.zeros((rows, self.chunk_size), np.int32)
         ck_start = np.zeros((rows,), np.int32)
@@ -141,12 +181,17 @@ class UnifiedServeEngine(ContinuousServeEngine):
         for i, c in enumerate(chunks):
             ck_tokens[i, :c.length] = c.tokens
             ck_start[i], ck_len[i], ck_slot[i] = c.start, c.length, c.slot
-        ck_len_dev = self._dev(ck_len)
-        logits = self.model.span_step(
-            self._caches, self._dev(ck_tokens), self._dev(ck_start), ck_len_dev,
-            tables[self._dev(ck_slot)])
+        return (self._dev(ck_tokens), self._dev(ck_start), self._dev(ck_len),
+                self._dev(ck_slot))
+
+    def _fold_chunk_rows(self, logits, chunks, ck_len, tok, idx):
+        """Sample each chunk row's last valid position, and fold the first
+        token and decode position of every row that completes its prompt
+        into the slot registers.  Shared by the unified and spec steps.
+        Returns (tok, idx, ck_tok [chunk_rows])."""
+        rows = self.chunk_rows
         last = logits[torch.arange(rows, device=self.device),
-                      (ck_len_dev.long() - 1).clamp(min=0)]
+                      (ck_len.long() - 1).clamp(min=0)]
         ck_tok = sample_logits(last, self._generator(salt=1), self.temperature,
                                self.cfg.vocab_size, self.top_k, self.top_p)
         done = [i for i, c in enumerate(chunks) if c.sample]
@@ -156,7 +201,54 @@ class UnifiedServeEngine(ContinuousServeEngine):
             pos = [chunks[i].start + chunks[i].length for i in done]
             tok = tok.index_copy(0, slots, ck_tok[sel])
             idx = idx.index_copy(0, slots, self._dev(np.asarray(pos, np.int32)))
-        return tok, idx, toks, ck_tok
+        return tok, idx, ck_tok
+
+    # ------------------------------------------------------------------
+    # one speculative dispatch: verify spans + chunk rows in one span pass
+    # ------------------------------------------------------------------
+    def _spec_impl(self, tok, idx, active, tables, drafts, draft_q, spec_len,
+                   chunks):
+        """One speculative dispatch in ONE span pass, enqueued on the
+        device.  Every slot contributes a row ``[tok, d_0 .. d_{K-1}]`` at
+        positions ``idx .. idx + K`` with ``spec_len`` valid tokens
+        (``k + 1`` for a planned slot, 0 otherwise: an idle row scatters
+        only into the NULL block and its outputs are discarded); the chunk
+        rows ride the same batch, padded to the common width.
+        :func:`spec_accept` commits each slot's accepted prefix plus one
+        token into the registers; completed prompts sample their first
+        token.  Returns (tok, idx, out_toks [S, K+1], n_acc [S], ck_tok
+        [chunk_rows] or None)."""
+        kmax = self.spec_k_max
+        width = max(kmax + 1, self.chunk_size) if chunks else kmax + 1
+        row_tokens = torch.nn.functional.pad(
+            torch.cat([tok[:, None], drafts], dim=1), (0, width - (kmax + 1)))
+        row_start, row_len = idx, spec_len
+        row_bt = tables.masked_fill(~active[:, None], NULL_BLOCK)
+        if chunks:
+            ck_tokens, ck_start, ck_len, ck_slot = self._pack_chunks(chunks)
+            row_tokens = torch.cat([row_tokens, torch.nn.functional.pad(
+                ck_tokens, (0, width - self.chunk_size))])
+            row_start = torch.cat([idx, ck_start])
+            row_len = torch.cat([spec_len, ck_len])
+            row_bt = torch.cat([row_bt, tables[ck_slot]])
+        logits = self.model.span_step(self._caches, row_tokens, row_start,
+                                      row_len, row_bt)
+        s = self.num_slots
+        out_toks, n_acc = spec_accept(
+            logits[:s, :kmax + 1], drafts, (spec_len - 1).clamp(min=0),
+            draft_q, self._generator(salt=2), self.temperature,
+            self.cfg.vocab_size, self.top_k, self.top_p)
+        # gate on `active` too: a slot dropped host-side after planning
+        # never advances its registers
+        spec_active = (spec_len > 0) & active
+        final = out_toks.gather(1, n_acc.long()[:, None])[:, 0]
+        tok = torch.where(spec_active, final, tok)
+        idx = torch.where(spec_active, idx + n_acc + 1, idx)
+        ck_tok = None
+        if chunks:
+            tok, idx, ck_tok = self._fold_chunk_rows(
+                logits[s:, :self.chunk_size], chunks, ck_len, tok, idx)
+        return tok, idx, out_toks, n_acc, ck_tok
 
     # ------------------------------------------------------------------
     # admission policy: blocks for the FIRST chunk only (JIT per chunk)
@@ -174,6 +266,10 @@ class UnifiedServeEngine(ContinuousServeEngine):
         return ok
 
     def on_admit(self, slot: int, req: Request):
+        if self.spec is not None:
+            # every occupant change passes through here: the proposer's
+            # per-slot drafting state (a draft model's cursor) resets
+            self.spec.reset_slot(slot)
         pool = self.pool
         hits, hashes = self._lookup_hits(req)
         self._admit_plan = None
@@ -228,13 +324,18 @@ class UnifiedServeEngine(ContinuousServeEngine):
         return ChunkPlan(slot, req, progress, length, tokens,
                          sample=progress + length >= target)
 
-    def _plan_chunks(self, pairs) -> list[ChunkPlan]:
+    def _plan_chunks(self, pairs, decode_tokens: int | None = None
+                     ) -> list[ChunkPlan]:
         """This iteration's prefill chunks — resumes first (oldest
         admission first), then FIFO admissions — up to ``chunk_rows``
-        streams sharing the budget left after decode."""
+        streams sharing the budget left after decode.  ``decode_tokens``
+        overrides the decode charge (spec mode charges draft + verify
+        positions, not one token a slot)."""
         if not self.chunkable:
             return []
-        budget = self.max_step_tokens - len(pairs)
+        if decode_tokens is None:
+            decode_tokens = len(pairs)
+        budget = self.max_step_tokens - decode_tokens
         plans: list[ChunkPlan] = []
         live = sorted((s for s in range(self.num_slots) if self._prefilling[s]),
                       key=lambda s: self.scheduler.slots[s].admit_seq)
@@ -381,6 +482,8 @@ class UnifiedServeEngine(ContinuousServeEngine):
         ``max_decode_burst`` steps; chunk-carrying ones up to
         ``mixed_burst``.  Returns {rid: [new_tokens]} for requests
         completed by THIS call."""
+        if self.spec is not None:
+            return self._run_spec()
         tr = self.tracer
         done0 = len(self.scheduler.completed)
         inflight: collections.deque[_Inflight] = collections.deque()
@@ -452,6 +555,234 @@ class UnifiedServeEngine(ContinuousServeEngine):
             self._whole_tokens += sum(
                 self._start_index(r) - r.prefix_hit_tokens for _, r in members)
             self._do_prefill(members)
+
+    # ------------------------------------------------------------------
+    # speculative decoding (spec mode)
+    # ------------------------------------------------------------------
+    def _slot_pos(self, slot: int, req: Request) -> int:
+        """Absolute position of the slot's pending token: the last sampled,
+        not yet written token the next verify span roots at."""
+        return int(self._slot_start[slot]) + len(req.tokens) \
+            - int(self._slot_sched0[slot]) - 1
+
+    def _plan_spec(self, pairs):
+        """Clamp each decode-active slot's draft width to the step budget,
+        its remaining generation and the cache capacity, then allocate the
+        blocks its span writes — oldest admissions first, each span
+        shrinking to what the pool funds (width 0 is a one-token decode),
+        and the NEWEST request preempted when even the pending token
+        cannot be funded.  Returns (surviving pairs, spec_len [S]) with
+        ``spec_len[slot] = k + 1`` for planned slots."""
+        pool = self.pool
+        while True:
+            spec_len = np.zeros((self.num_slots,), np.int32)
+            if not pairs:
+                return pairs, spec_len
+            k_base = max(0, min(self._spec_k,
+                                self.max_step_tokens // len(pairs) - 1))
+            ok = True
+            for slot, req in sorted(pairs, key=lambda sr: sr[1].admit_seq):
+                pos = self._slot_pos(slot, req)
+                rem = req.max_new_tokens - len(req.tokens)
+                k = max(0, min(k_base, rem - 1, self.capacity - 1 - pos))
+                missing, shared = self._span_cost(slot, pos, k)
+                while k > 0 and max(missing, 0) + len(shared) > pool.available():
+                    k -= 1
+                    missing, shared = self._span_cost(slot, pos, k)
+                if max(missing, 0) + len(shared) > pool.available():
+                    ok = False  # even the pending token cannot be funded
+                    break
+                if missing > 0:
+                    self._grow_slot_blocks(slot, missing)
+                for w in shared:
+                    old = self._slot_blocks[slot][w]
+                    fresh, copied = pool.cow(old)
+                    if copied:
+                        self._slot_blocks[slot][w] = fresh
+                        self._tables[slot, w] = fresh
+                        self._tables_dirty = True
+                        self._cow_pairs.append((old, fresh))
+                spec_len[slot] = k + 1
+            if ok:
+                return pairs, spec_len
+            # blocks granted to older slots stay owned (unused tails roll
+            # back after the dispatch): evict the newest request, replan
+            self._preempt_one(pairs)
+
+    def _span_cost(self, slot: int, pos: int, k: int):
+        """(blocks to grow, table entries to copy on write) for a span
+        writing positions ``pos .. pos + k``: a block another holder
+        still references is copied first, charged like the growth."""
+        pool, bs = self.pool, self.block_size
+        blocks = self._slot_blocks[slot]
+        missing = pool.blocks_for(pos + k + 1) - len(blocks)
+        shared = [w for w in range(pos // bs,
+                                   min((pos + k) // bs, len(blocks) - 1) + 1)
+                  if pool.ref(blocks[w]) > 1]
+        return missing, shared
+
+    def _rollback_spec_blocks(self, slot: int, next_pos: int) -> None:
+        """Return trailing blocks holding ONLY rejected-draft residue to
+        the pool: committed content fills [0, next_pos) and the pending
+        token writes AT ``next_pos``, so every block past ``next_pos``'s
+        own holds speculation alone.  Such a block was grown by this slot
+        and never registered, so no other holder can reference it."""
+        keep = self.pool.blocks_for(next_pos + 1)
+        blocks = self._slot_blocks[slot]
+        if len(blocks) > keep:
+            extra = blocks[keep:]
+            del blocks[keep:]
+            self._tables[slot, keep:] = NULL_BLOCK
+            self._tables_dirty = True
+            self.pool.free(extra)
+            self.stats["spec_rollback_blocks"] += len(extra)
+
+    def _propose(self, pairs, spec_len):
+        """Host side of a dispatch's drafts: (drafts [S, K] on the device,
+        q [S, K, V] on the device or None)."""
+        kmax = self.spec_k_max
+        drafts = np.zeros((self.num_slots, kmax), np.int32)
+        q_all = None
+        k_ask = max((int(spec_len[s]) - 1 for s, _ in pairs), default=0)
+        if k_ask > 0:
+            slots = [s for s, _ in pairs]
+            dr, q = self.spec.propose(slots, [r.input_ids() for _, r in pairs],
+                                      k_ask)
+            drafts[slots, :k_ask] = dr[:, :k_ask]
+            if q is not None and self.temperature > 0.0:
+                # scattered on the device: q comes straight from the draft
+                # model's proposal steps
+                q_all = torch.zeros((self.num_slots, kmax, self.cfg.vocab_size),
+                                    dtype=torch.float32, device=self.device)
+                q_all[self._dev(np.asarray(slots, np.int64)), :k_ask] = \
+                    q[:, :k_ask].float().to(self.device)
+        return self._dev(drafts), q_all
+
+    def _run_spec(self) -> dict[int, np.ndarray]:
+        """Speculative serving loop: per iteration ONE span dispatch
+        verifies every decode-active slot's drafts, with the prefill
+        chunks in the same batch.  Synchronous: the next drafts depend on
+        this dispatch's committed tokens."""
+        tr = self.tracer
+        done0 = len(self.scheduler.completed)
+        t_run0 = time.perf_counter()
+        with torch.inference_mode():
+            while not self.scheduler.drained():
+                pairs = [(s, r) for s, r in self.scheduler.active()
+                         if self._active[s]]
+                pairs, spec_len = self._plan_spec(pairs)
+                decode_tokens = int(spec_len.sum())
+                if tr and (self.queue or self._prefilling.any()):
+                    with tr.phase(ev.PHASE_ADMIT):
+                        chunks = self._plan_chunks(pairs, decode_tokens)
+                else:
+                    chunks = self._plan_chunks(pairs, decode_tokens)
+                # chunk planning can preempt a spec-planned decode victim:
+                # drop its span, so the budget never charges positions that
+                # do not dispatch and its registers stay frozen
+                live = {s for s, _ in pairs}
+                for s in np.nonzero(spec_len)[0]:
+                    if int(s) not in live:
+                        spec_len[s] = 0
+                decode_tokens = int(spec_len.sum())
+                self.stats["peak_active"] = max(self.stats["peak_active"],
+                                                self.scheduler.occupancy())
+                self.stats["peak_blocks"] = max(self.stats["peak_blocks"],
+                                                self.pool.num_active())
+                self.stats["peak_shared"] = max(self.stats["peak_shared"],
+                                                self.pool.num_shared())
+                if not pairs and not chunks:
+                    if not self.scheduler.drained() and not self._preempted:
+                        if not self._relieve_stalled_prefill():
+                            raise RuntimeError(
+                                "serve loop stalled: nothing dispatchable but "
+                                "the scheduler is not drained")
+                    self._drain_preempted()
+                    continue
+                drafts, draft_q = self._propose(pairs, spec_len)
+                self._flush_cow()  # CoW copies land before the span writes
+                self._prep_dispatch()
+                t_dispatch = _now_ns()
+                with (tr.phase(ev.PHASE_DECODE) if tr
+                      else contextlib.nullcontext()), \
+                        (tr.user_function(name="spec_step") if tr
+                         else contextlib.nullcontext()):
+                    self._tok, self._idx, out_toks, n_acc, ck_tok = \
+                        self._spec_impl(self._tok, self._idx, self._active_dev,
+                                        self._tables_dev, drafts, draft_q,
+                                        self._dev(spec_len), chunks)
+                    out = out_toks.cpu().numpy()  # the dispatch's one sync
+                    nacc = n_acc.cpu().numpy()
+                    ck = None if ck_tok is None else ck_tok.cpu().numpy()
+                self._dispatches += 1
+                self._note_kernel("paged_span")  # verify rides the span
+                self.stats["host_syncs"] += 1
+                n_chunk = self._advance_chunks(chunks, t_dispatch)
+                drafted, accepted = self._commit_spec(pairs, spec_len, out,
+                                                      nacc)
+                self._emit_chunk_tokens(chunks, ck)
+                if pairs:
+                    self.stats["spec_dispatches"] += 1
+                    self.stats["iterations"] += 1
+                    self.stats["decode_syncs"] += 1
+                    # dispatch and sync coincide in the spec lane; the
+                    # invariant decode_syncs == decode_dispatches holds
+                    self.stats["decode_dispatches"] += 1
+                self.stats["spec_drafted"] += drafted
+                self.stats["spec_accepted"] += accepted
+                k_used = self._spec_k  # the width in effect this dispatch
+                self._adapt_k(drafted, accepted)
+                self._since_flush += 1
+                if tr:
+                    tr.emit(ev.EV_STEP_BUDGET, decode_tokens + n_chunk)
+                    tr.emit(ev.EV_CHUNK_TOKENS, n_chunk)
+                    tr.emit(ev.EV_DECODE_TOKENS, decode_tokens)
+                    if pairs:
+                        tr.emit(ev.EV_SPEC_DRAFTED, drafted)
+                        tr.emit(ev.EV_SPEC_ACCEPTED, accepted)
+                        tr.emit(ev.EV_SPEC_K, k_used)
+                    tr.emit(EV_TOKENS_DECODED, self.stats["tokens_decoded"])
+                    tr.emit(ev.EV_TOKENS_TOTAL, self.stats["tokens_decoded"])
+                    tr.emit(ev.EV_QUEUE_DEPTH, len(self.queue))
+                    if self.flush_every and self._since_flush >= self.flush_every:
+                        tr.flush(self.flush_base)
+                        self._since_flush = 0
+                self._drain_preempted()
+        self.stats["seconds"] += time.perf_counter() - t_run0
+        return {r.rid: np.asarray(r.tokens, np.int32)
+                for r in self.scheduler.completed[done0:]}
+
+    def _commit_spec(self, pairs, spec_len, out, nacc) -> tuple[int, int]:
+        """Append each planned slot's accepted prefix plus its correction
+        or bonus token; retire finished requests and roll back the blocks
+        of the rest.  Returns (drafted, accepted)."""
+        drafted = accepted = 0
+        for slot, req in pairs:
+            if spec_len[slot] == 0:
+                continue
+            m = int(nacc[slot]) + 1
+            drafted += int(spec_len[slot]) - 1
+            accepted += int(nacc[slot])
+            req.tokens.extend(int(t) for t in out[slot, :m])
+            req.scheduled = len(req.tokens)
+            self.stats["tokens_decoded"] += m
+            if len(req.tokens) >= req.max_new_tokens:
+                self._finish(req)  # releases every block, residue included
+            else:
+                self._rollback_spec_blocks(slot, self._slot_pos(slot, req))
+        return drafted, accepted
+
+    def _adapt_k(self, drafted: int, accepted: int) -> None:
+        """Acceptance-rate EMA; ``spec_adaptive`` widens K above 0.7 and
+        narrows it below 0.35."""
+        if drafted <= 0:
+            return
+        self._accept_ema = 0.7 * self._accept_ema + 0.3 * accepted / drafted
+        if self.spec_adaptive:
+            if self._accept_ema > 0.7:
+                self._spec_k = min(self._spec_k + 1, self.spec_k_max)
+            elif self._accept_ema < 0.35:
+                self._spec_k = max(1, self._spec_k - 1)
 
     def beam_search(self, prompt, num_tokens: int, *, width: int = 4):
         raise NotImplementedError("beam search is not ported yet")

@@ -559,3 +559,133 @@ def test_ssd_bf16_kernel_reads_strided_views(cuda_device):
     y, state = ssd_scan.ssd_scan_fwd(xs, dt, a_log, bm, cm)
     ry, rstate = ssd_ref.ssd_sequential_ref(xs, dt, a_log, bm, cm)
     assert ssd_ref.check_ratio(y, ry) <= 1 and ssd_ref.check_ratio(state, rstate) <= 1
+
+
+# ----------------------------------------------------------------------
+# the speculative lane's verify rows, and mamba2 on the legacy and
+# fixed-batch engines
+# ----------------------------------------------------------------------
+# four slot rows of K + 1 <= 5 valid queries (one idle slot) beside two
+# chunk rows, at Q = 32: the spec dispatch's span batch
+VERIFY_ROWS = ([543, 17, 0, 300, 192, 421], [5, 3, 0, 2, 32, 17])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8", "fp8"])
+def test_span_verify_rows_hold_to_f64_oracle(cuda_device, kv_dtype):
+    """Kernel 2/2q with bf16 q at the verify rows' shape: rows of 2-5
+    valid queries of 32 and an idle row, the plan's splits and one forced
+    split within the check of the f64 oracle; the idle row is zeros."""
+    starts, lens = VERIFY_ROWS
+    q, kp, vp, bt, st, ln = _case(cuda_device, torch.bfloat16, b=len(starts),
+                                  q_len=32, starts=starts, lens=lens)
+    sc = {}
+    if kv_dtype != "fp16":
+        kp, vp, sc = _quantize_pool(kp, vp, kv_dtype)
+    out = paged.paged_span_fwd(q, kp, vp, bt, st, ln, **sc)
+    one = paged.paged_span_fwd(q, kp, vp, bt, st, ln, splits=1, **sc)
+    want = attn_ref.paged_span_ref(q, kp, vp, bt, st, ln, **sc)
+    valid = attn_ref.span_valid(ln, 32)
+    assert torch.isfinite(out).all()
+    assert attn_ref.check_ratio(out, want, valid=valid) <= 1.0
+    assert attn_ref.check_ratio(one, want, valid=valid) <= 1.0
+    assert (out[ln == 0] == 0).all() and (one[ln == 0] == 0).all()
+
+
+def _greedy_oracle(model, vocab, prompt, gen, device):
+    """Greedy full recompute through forward()."""
+    with torch.inference_mode():
+        ctx = torch.tensor(prompt, device=device)[None]
+        for _ in range(gen):
+            nxt = model(ctx)[0, -1, :vocab].argmax()
+            ctx = torch.cat([ctx, nxt.view(1, 1).to(ctx.dtype)], 1)
+    return ctx[0, len(prompt):].cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,kv_dtype", [("ngram", "fp16"),
+                                           ("ngram", "int8"),
+                                           ("draft", "fp16")],
+                         ids=["ngram", "ngram-int8", "draft"])
+def test_spec_engine_kernel_equals_plain_greedy(cuda_device, spec, kv_dtype):
+    """The spec lane on reduced granite in float32: kernel_mode pallas
+    (every verify and chunk row on kernel 2/2q, the decode kernel never
+    launched) and xla serve the same greedy streams, equal to the
+    non-spec engine and (native pool) to the forward() oracle."""
+    from repro_torch.serve.spec import DraftModelProposer, NGramProposer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    motif = rng.integers(0, 512, (6,)).astype(np.int32)
+    prompts = [np.tile(motif, 4), rng.integers(0, 512, (7,)).astype(np.int32),
+               np.tile(motif, 3)[:17], rng.integers(0, 512, (30,)).astype(np.int32)]
+    streams = []
+    for mode in ("pallas", "xla"):
+        cfg = reduced(get_config("granite-8b"), kernel_mode=mode,
+                      kv_dtype=kv_dtype)
+        model = build_model(cfg, device=cuda_device)
+        prop = (NGramProposer() if spec == "ngram" else DraftModelProposer(
+            reduced(get_config("granite-8b"), num_layers=1), num_slots=2,
+            max_len=64, device=cuda_device))
+        eng = UnifiedServeEngine(cfg, model, device=cuda_device, num_slots=2,
+                                 max_len=64, chunk_size=8, spec=prop, spec_k=4)
+        ops.reset_counts()
+        reqs = [eng.submit(p, 10) for p in prompts]
+        out = eng.run()
+        streams.append([out[r.rid] for r in reqs])
+        count = "launches" if kv_dtype == "fp16" else "quant_launches"
+        span = getattr(ops.paged_span_attention, count)
+        decode = (ops.paged_attention.launches
+                  + ops.paged_attention.quant_launches)
+        assert decode == 0, decode
+        assert (span > 0) == (mode == "pallas"), span
+        assert eng.stats["spec_dispatches"] > 0
+        ref = UnifiedServeEngine(cfg, model, device=cuda_device, num_slots=2,
+                                 max_len=64, chunk_size=8)
+        rr = [ref.submit(p, 10) for p in prompts]
+        ref_out = ref.run()
+        for r, a in zip(rr, streams[-1]):
+            np.testing.assert_array_equal(a, ref_out[r.rid])
+        if kv_dtype == "fp16":
+            for p, a in zip(prompts, streams[-1]):
+                np.testing.assert_array_equal(
+                    a, _greedy_oracle(model, cfg.vocab_size, p, 10, cuda_device))
+    for a, b in zip(*streams):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mamba2_legacy_and_fixed_batch_kernel_equals_plain_greedy(cuda_device):
+    """Reduced mamba2 in float32 on the grouped-prefill engine (three
+    same-length prompts prefill as one B 3 launch of kernel 4) and the
+    fixed-batch engine: pallas and xla streams identical, equal to the
+    forward() oracle."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 512, (n,)).astype(np.int32)
+               for n in (16, 16, 16, 7, 30)]
+    streams = []
+    for mode in ("pallas", "xla"):
+        cfg = reduced(get_config("mamba2-370m"), kernel_mode=mode)
+        model = build_model(cfg, device=cuda_device)
+        ssd_ops.reset_counts()
+        eng = ContinuousServeEngine(cfg, model, device=cuda_device,
+                                    num_slots=3, max_len=48,
+                                    max_prefills_per_iter=3)
+        reqs = [eng.submit(p, 10) for p in prompts]
+        out = eng.run()
+        static = ServeEngine(cfg, model, device=cuda_device, max_len=48)
+        batch = static.generate(np.stack(prompts[:3]), num_tokens=10)
+        streams.append([out[r.rid] for r in reqs] + list(batch))
+        launched = ssd_ops.ssd_scan.launches
+        plain = ssd_scan.ssd_chunked_plain.calls
+        assert (launched > 0 and plain == 0) if mode == "pallas" \
+            else (launched == 0 and plain > 0), (launched, plain)
+        assert eng.stats["host_syncs"] - eng.stats["decode_syncs"] < len(prompts)
+    for a, b in zip(*streams):
+        np.testing.assert_array_equal(a, b)
+    for p, a in zip(prompts, streams[0]):
+        np.testing.assert_array_equal(
+            a, _greedy_oracle(model, cfg.vocab_size, p, 10, cuda_device))

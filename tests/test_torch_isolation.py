@@ -1,6 +1,7 @@
 """Torch port isolation: every ``repro_torch`` module imports (the ssm
-model and the SSD scan package included), and the reduced CPU engines
-serve (the legacy one traced into a ``.prv``; mamba2 unified), in a
+model, the SSD scan package and the spec proposers included), and the
+reduced CPU engines serve (the legacy one traced into a ``.prv``; mamba2
+unified and legacy; the n-gram and draft-model spec lanes), in a
 process where ``jax`` and ``repro`` cannot be imported at all; no port
 source names them."""
 from __future__ import annotations
@@ -57,6 +58,18 @@ ssm = UnifiedServeEngine(reduced(get_config("mamba2-370m"), num_layers=1),
                          device="cpu", num_slots=1, max_len=32)
 req = ssm.submit(np.arange(9, dtype=np.int32), 5)
 assert len(ssm.run()[req.rid]) == 5 and ssm.pool is None
+ssm_legacy = ContinuousServeEngine(ssm.cfg, ssm.model, device="cpu",
+                                   num_slots=1, max_len=32)
+req = ssm_legacy.submit(np.arange(9, dtype=np.int32), 5)
+assert len(ssm_legacy.run()[req.rid]) == 5
+from repro_torch.serve.spec import make_proposer
+for kind in ("ngram", "draft:granite-8b"):
+    spec = UnifiedServeEngine(cfg, eng.model, device="cpu", num_slots=1,
+                              max_len=32, spec=make_proposer(
+                                  kind, cfg, num_slots=1, max_len=32,
+                                  device="cpu"))
+    req = spec.submit(np.arange(9, dtype=np.int32), 5)
+    assert len(spec.run()[req.rid]) == 5 and spec.stats["spec_dispatches"]
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print("ok", len(mods))

@@ -171,8 +171,9 @@ def test_engine_guards():
         eng.submit(np.arange(4), 2, n_samples=2)
     with pytest.raises(ValueError, match="capacity"):
         eng.submit(np.arange(12), 8)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        UnifiedServeEngine(cfg, device="cpu", num_slots=1, max_len=16,
+    ssm = reduced(get_config("mamba2-370m"), num_layers=1)
+    with pytest.raises(ValueError, match="speculative"):
+        UnifiedServeEngine(ssm, device="cpu", num_slots=1, max_len=16,
                            spec=object())
 
 
@@ -236,14 +237,18 @@ def test_cli_serves_mamba2_with_whole_prompt_admission_on_cpu(capsys):
 
 @pytest.mark.parametrize("mode", ["continuous", "static"])
 def test_cli_mamba2_other_modes_name_the_next_slice(capsys, mode):
-    with pytest.raises(SystemExit):
-        serve_cli.main(["--device", "cpu", "--arch", "mamba2-370m",
-                        "--mode", mode])
-    assert "next slice" in capsys.readouterr().err
+    """The slice has landed: both modes serve mamba2 (no pool line)."""
+    assert serve_cli.main(["--device", "cpu", "--arch", "mamba2-370m",
+                           "--mode", mode, "--requests", "3", "--slots", "2",
+                           "--prompt-len", "10", "--gen", "3"]) == 0
+    out = capsys.readouterr().out
+    assert f"mode={mode}" in out and "9 tokens" in out, out
+    assert "paged pool" not in out, out
 
 
 @pytest.mark.parametrize("flag", [["--beam", "2"], ["--mp", "2"],
-                                  ["--spec", "ngram"], ["--overlap", "on"],
+                                  ["--spec", "ngram", "--mode", "static"],
+                                  ["--overlap", "on"],
                                   ["--replicas", "2"], ["--n", "2"],
                                   ["--flush-every", "2"]])
 def test_cli_rejects_paths_not_ported(flag):

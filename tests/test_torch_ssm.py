@@ -368,11 +368,15 @@ def test_engines_without_a_pool_and_refusals(pair):
     assert eng.pool is None and eng.kv_bytes_per_token == 0
     assert not eng.prefix_cache and not eng.chunkable
     assert not model.fully_paged() and not any(model.paged_leaf_mask().values())
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ContinuousServeEngine(cfg, model, device="cpu", num_slots=1,
-                              max_len=16).run()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ServeEngine(cfg, model, device="cpu", max_len=16)
+    legacy = ContinuousServeEngine(cfg, model, device="cpu", num_slots=1,
+                                   max_len=16)
+    assert legacy.pool is None and legacy.kv_bytes_per_token == 0
+    assert not legacy.prefix_cache
+    req = legacy.submit(np.arange(5, dtype=np.int32), 3)
+    assert len(legacy.run()[req.rid]) == 3
+    static = ServeEngine(cfg, model, device="cpu", max_len=16)
+    assert static.generate(np.arange(5, dtype=np.int32)[None],
+                           num_tokens=3).shape == (1, 3)
     with pytest.raises(ValueError, match="attention-only"):
         model.span_step({}, torch.zeros((1, 2), dtype=torch.int32),
                         *(torch.zeros(1, dtype=torch.int32),) * 2,

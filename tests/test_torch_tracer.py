@@ -113,7 +113,7 @@ def test_event_ids_and_labels_match_jax():
 
 @pytest.mark.parametrize("mode", ["jax_process", "mesh_data"])
 def test_mesh_modes_wait_for_the_port_mesh(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
         ProcessModel(mode)
 
 
