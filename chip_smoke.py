@@ -46,9 +46,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    start with a 5-token row, a 2560-token table, head dim 64 — and in 24
    more at the GQA groups 1, 8 and 12 of codeqwen / yi / mistral-large
    (native and int8 pools, window off and 100, the main rows and the
-   5-token row: one part-empty, two and three 128-row tiles), held to
-   ``ref.check_ratio`` <= 1, a forced single split to the oracle and to
-   the split output within one bf16 ulp.  The decode bodies (kernels
+   5-token row: one part-empty, two and three 128-row tiles), and in 4
+   at beam search's prefill row (one row of Q 512 at start 0: 2048
+   folded rows at granite's G 4, 512 at deepseek-moe's G 1; native and
+   int8), held to ``ref.check_ratio`` <= 1, a forced single split to the
+   oracle and to the split output within one bf16 ulp.  The decode bodies (kernels
    1/1q: 4 warps that divide each block's keys, key splits on the span
    body's merge) against the same oracle in 16 cases at the main path's
    4 slots at 0, 17, 300 and 543 (D 128 and 64, window off and 100, bf16
@@ -126,6 +128,34 @@ Phases (each prints its own lines; any failure exits non-zero):
       at ``MAMBA2_FIRST_TOKEN_TOL``; token agreement with (f);
    j. the same model through ``ServeEngine``: 4 prompts of 300 tokens
       (one B 4 scan a layer), 32 tokens, the checks of (i);
+   k. granite-8b (the model of a-h) with n-way forks on the unified
+      engine, bf16 pool and then int8: four phase-4 prompts with
+      ``n_samples=3``, greedy, 12 slots: every sibling equals its fork 0
+      token for token, every fork 0 holds to ``forward()`` under
+      ``SPEC_ORACLE_MARGIN``; then a temperature 0.8 fan of two prompts
+      twice at one seed (identical runs, fork 0 equal to the unforked
+      request); the pool's forks, CoW copies and peak shared blocks;
+   l. beam search (width 4, 32 tokens, one 512-token prompt: best-first,
+      at least one CoW copy, active blocks back where they started,
+      ``EV_FORK`` in the merged ``.prv`` equal to the pool's forks; width
+      1 under the margin rule) and a two-turn session (turn 2's prefix
+      hits cover turn 1's whole blocks, ``close_session`` releases the
+      pin), traced; the granite model is freed after (l);
+   m. full-width deepseek-moe-16b (28 layers, d_model 2048, 64 routed
+      experts top-6 + 2 shared, bf16, ~33.8 GB of random weights from a
+      seed) at the published capacity factor 1.25: the kernel path held
+      to the plain path on one batch (four 128-token span rows and 32
+      decode steps fed the kernel path's tokens: the plain logits within
+      ``MOE_MARGIN`` of their argmax, the argmax wherever the top-2
+      margin exceeds it); the phase-4 stream through the unified engine
+      under pallas (both paged kernels, no plain path) and xla (stream
+      agreement printed) and through the grouped-prefill engine (flash
+      and decode kernels); tok/s, TTFT/TPOT, 229,376 pool bytes a token,
+      one profiled window with the moe dispatch ops named;
+   n. the same model drop-free (cf 11 >= E / k): each first token of the
+      stream within ``MOE_MARGIN`` of ``forward()``'s argmax;
+   (the profiled windows read the profiler's raw device events: busy
+   time as the sum of kernel times and as the union of their intervals)
 5. reduced granite (float32, 2 layers, full attention and a sliding
    window) through ``ContinuousServeEngine``, ``UnifiedServeEngine`` and
    ``ServeEngine`` with ``kernel_mode="pallas"`` (the CUDA kernels) and
@@ -176,6 +206,13 @@ MAMBA2_FIRST_TOKEN_TOL = 8.0
 # cannot flip a margin above m leaves a gap of at most m
 SPEC_K = 4
 SPEC_ORACLE_MARGIN = {"fp16": 0.25, "int8": 1.0}
+# deepseek-moe-16b at full width (waves m, n; fixed before the first card
+# run): a flipped expert choice moves the logits further than attention
+# rounding alone, so twice the bf16 pool's margin bounds (m) the plain
+# path's logits at the kernel path's tokens on the same batch, and (n)
+# the drop-free engine's first tokens below forward()'s argmax
+MOE_MARGIN = 0.5
+MOE_DROP_FREE_CF = 11.0  # >= E / k = 64 / 6: no slot is ever dropped
 CSRC = "src/repro_torch/kernels/attention/csrc/"
 KERNELS = ("paged_decode", "paged_span", "paged_decode_quant",
            "paged_span_quant", "flash_attention", "ssd_scan")
@@ -742,6 +779,20 @@ def span_oracle_phase(torch, np):
     print(f"[smoke] paged_span oracle at G 1 / 8 / 12: "
           f"{2 * 2 * len(rows) * len(SPAN_GROUP_ARCHS)} cases, worst ratio "
           f"by G {by_g}")
+    # beam search prefills its prompt as ONE span row: Q 512 at start 0,
+    # 2048 folded rows at granite's G 4 and 512 at deepseek-moe's G 1
+    brng = np.random.default_rng(13)
+    beam = {}
+    for arch in ("granite-8b", "deepseek-moe-16b"):
+        hq, hkv = _heads(arch)
+        for kv_dtype in ("fp16", "int8"):
+            beam[arch, kv_dtype] = one_case(
+                "bfloat16", kv_dtype, None,
+                f"beam prefill row Q 512, {arch} G {hq // hkv}", 512, 128, 34,
+                4096, [0], [512], hkv=hkv, g=hq // hkv, rng=brng)
+    print(f"[smoke] paged_span oracle, beam-prefill rows: {len(beam)} cases, "
+          f"ratios " + ", ".join(f"{a} {k} {r:.3f}" for (a, k), r
+                                 in beam.items()))
     return ratios
 
 
@@ -1110,7 +1161,9 @@ def full_width_phase(torch, np):
     quantized pools: unified int8 (c) and fp8 (d), legacy int8 (e); then
     the unified engine's speculative lane, n-gram drafts on a bf16 pool
     (g) and draft-model drafts on an int8 pool (h), each followed by the
-    same stream with the non-spec streams replayed as drafts."""
+    same stream with the non-spec streams replayed as drafts; then n-way
+    forks on a bf16 and an int8 pool (k), and beam search and a two-turn
+    session (l).  The model is freed before it returns."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
@@ -1133,7 +1186,11 @@ def full_width_phase(torch, np):
     spec_wave(torch, np, cfg, model, "g", "replay", "fp16", 8, ref)
     ref = spec_wave(torch, np, cfg, model, "h", "draft:granite-8b", "int8", 4)
     spec_wave(torch, np, cfg, model, "h", "replay", "int8", 4, ref)
+    for kv_dtype in ("fp16", "int8"):
+        fork_wave(torch, np, cfg, model, kv_dtype, unified_ref)
+    beam_session_wave(torch, np, cfg, model)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -1326,6 +1383,390 @@ def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
     del eng
     torch.cuda.empty_cache()
     return {k: launches[k] for k in ("paged_decode_quant", "paged_span_quant")}
+
+
+def fork_wave(torch, np, cfg, model, kv_dtype, ref):
+    """Wave (k): n-way forks on the unified engine over a ``kv_dtype``
+    pool.  Four phase-4 prompts with ``n_samples=3``, greedy, on 12 slots
+    (every sibling is seated at its parent's fan): each sibling equals
+    its fork 0 token for token, and every fork 0 holds to ``forward()``
+    over its committed context under ``SPEC_ORACLE_MARGIN`` (``ref`` is
+    wave (a)'s streams: the first part is printed).  Then a temperature
+    0.8 fan of the first two prompts twice at one seed: both runs
+    identical, and each fork 0 equal to the unforked request at that seed.
+    A draw depends on the slot row it is sampled in, and those two
+    parents take slots 0 and 1 at the first dispatch in both runs (a later
+    parent's slot depends on where the siblings sit).  Prints the pool's
+    forks, CoW copies and peak shared blocks."""
+    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.serve.step import UnifiedServeEngine
+
+    gen, bs, n = 32, 16, 3
+    _, prompts = shared_prefix_stream(np.random.default_rng(1), np,
+                                      cfg.vocab_size, bs)
+    prompts = prompts[:4]
+    c = cfg.replace(kv_dtype=kv_dtype)
+
+    def engine(**kw):
+        return UnifiedServeEngine(c, model, device="cuda", num_slots=4 * n,
+                                  max_len=512 + gen, block_size=bs, **kw)
+
+    def fan(eng, g, n_samples, prompts=prompts):
+        reqs = [eng.submit(p, g, n_samples=n_samples) for p in prompts]
+        out = eng.run()
+        return [[out[r.rid] for r in [q] + q.forks] for q in reqs]
+
+    eng = engine()
+    fan(eng, 2, 1)  # warm-up
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats0 = dict(eng.throughput_stats())
+    streams = fan(eng, gen, n)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    count = "launches" if kv_dtype == "fp16" else "quant_launches"
+    launches = {w: getattr(getattr(ops, w), count)
+                for w in ("paged_attention", "paged_span_attention")}
+    plain = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
+             + flash.flash_attention_plain.calls)
+    st = eng.throughput_stats()
+    forks = st["forks"] - stats0["forks"]
+    cows = st["cow_copies"] - stats0["cow_copies"]
+    tokens = st["tokens_decoded"] - stats0["tokens_decoded"]
+    what = f"fork wave (k), {kv_dtype} pool"
+    print(f"[smoke] {what}: {len(prompts)} prompts x n={n}, {tokens} tokens "
+          f"in {seconds:.2f}s = {tokens / seconds:.1f} tok/s; pool forks "
+          f"{forks}, CoW copies {cows}, peak shared blocks "
+          f"{st['peak_shared']}, peak blocks {st['peak_blocks']}; kernel "
+          f"launches {launches}, plain-path calls {plain}")
+    require(all(v > 0 for v in launches.values()), f"{what}: kernel idle")
+    require(plain == 0, f"{what}: plain path ran {plain} times")
+    require(forks == len(prompts) * (n - 1) and cows > 0
+            and st["peak_shared"] > 0, f"{what}: {forks} forks, {cows} CoW")
+    for i, fam in enumerate(streams):
+        require(len(fam) == n and all(len(t) == gen for t in fam),
+                f"{what}: prompt {i} served {[len(t) for t in fam]}")
+        for j, t in enumerate(fam[1:], 1):
+            require(np.array_equal(t, fam[0]),
+                    f"{what}: prompt {i} fork {j} {t} != fork 0 {fam[0]}")
+    oracle_check(torch, np, model, cfg, prompts, [f[0] for f in streams],
+                 what, SPEC_ORACLE_MARGIN[kv_dtype])
+    print(f"[smoke] {what}: greedy siblings equal fork 0 token for token; "
+          f"first part of fork 0 from wave (a)'s stream (request, position): "
+          f"{first_part(np, [f[0] for f in streams], ref[:4])}")
+    tkw = dict(temperature=0.8, seed=11)
+    runs = [fan(engine(**tkw), gen // 2, n, prompts[:2]) for _ in range(2)]
+    solo = fan(engine(**tkw), gen // 2, 1, prompts[:2])
+    for i, (a, b, u) in enumerate(zip(*runs, solo)):
+        for j, (x, y) in enumerate(zip(a, b)):
+            require(np.array_equal(x, y), f"{what}: temperature 0.8 prompt "
+                    f"{i} fork {j} not reproduced at one seed")
+        require(np.array_equal(a[0], u[0]), f"{what}: temperature 0.8 prompt "
+                f"{i} fork 0 {a[0]} != the unforked request {u[0]}")
+    parted = sum(not np.array_equal(f[0], t) for f in runs[0] for t in f[1:])
+    print(f"[smoke] {what}: temperature 0.8 fan reproduced at one seed, every "
+          f"fork 0 equal to its unforked request; {parted} of "
+          f"{2 * (n - 1)} siblings part from fork 0")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def beam_session_wave(torch, np, cfg, model):
+    """Wave (l): beam search and a session on the unified engine, bf16
+    pool, traced (segments flushed, merged into one ``.prv``).  One
+    512-token prompt: width 1 holds to ``forward()`` under the margin
+    rule (and its first part from the greedy stream is printed), width 4
+    over 32 tokens comes back best-first with finite scores, at least one
+    CoW copy, the active blocks back where they started, and one
+    ``EV_FORK`` in the merged trace per pool fork (the W - 1 aliases of
+    the prompt plus every reseat).  Then a two-turn session: turn 2's
+    prefix hits cover turn 1's whole blocks; ``close_session`` releases
+    the pin."""
+    from repro_torch import core as xtrace
+    from repro_torch.core import events as ev
+    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.serve.step import UnifiedServeEngine
+
+    gen, bs, w = 32, 16, 4
+    rng = np.random.default_rng(21)
+    prompt = rng.integers(0, cfg.vocab_size, (512,)).astype(np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = pathlib.Path(tmp) / "serve"
+        tracer = xtrace.Tracer("chip-smoke-beam").init()
+        eng = UnifiedServeEngine(cfg, model, device="cuda", num_slots=4,
+                                 max_len=2 * 512, block_size=bs,
+                                 tracer=tracer, flush_every=8, flush_base=base)
+        r = eng.submit(prompt, gen)
+        greedy = eng.run()[r.rid]
+        pool = eng.pool
+        active0, forks0 = pool.num_active(), pool.stats["forks"]
+        cows0 = pool.stats["cow_copies"]
+        ops.reset_counts()
+        one = eng.beam_search(prompt, gen, width=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beams = eng.beam_search(prompt, gen, width=w)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"paged_decode": ops.paged_attention.launches,
+                    "paged_span": ops.paged_span_attention.launches}
+        plain = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
+                 + flash.flash_attention_plain.calls)
+        forks = pool.stats["forks"] - forks0
+        cows = pool.stats["cow_copies"] - cows0
+        active1 = pool.num_active()
+        # a two-turn session on the same engine and trace
+        t1 = eng.submit(prompt[:300], gen, session="chat")
+        ctx1 = np.concatenate([prompt[:300], eng.run()[t1.rid]])
+        follow = rng.integers(0, cfg.vocab_size, (40,)).astype(np.int32)
+        t2 = eng.submit(np.concatenate([ctx1, follow]), gen, session="chat")
+        eng.run()
+        released = eng.close_session("chat")
+        segments = list(tracer.segments)
+        paths = xtrace.write_prv(tracer.finish(), base, segments=segments)
+        trace = xtrace.parse_prv(paths["prv"])
+    n_fork_ev = int((trace.events["type"] == ev.EV_FORK).sum())
+    scores = [sc for _, sc in beams]
+    print(f"[smoke] beam wave (l): width {w} x {gen} tokens on a 512-token "
+          f"prompt in {seconds:.2f}s; scores best-first {[round(x, 3) for x in scores]}; "
+          f"pool forks {forks} ({forks - (w - 1)} reseats), CoW copies "
+          f"{cows}, active blocks {active0} -> {active1}; EV_FORK in the "
+          f"merged .prv ({len(segments)} segments) {n_fork_ev}; kernel "
+          f"launches {launches}, plain-path calls {plain}")
+    require(len(beams) == w and all(math.isfinite(x) for x in scores)
+            and scores == sorted(scores, reverse=True),
+            f"beam wave: scores {scores}")
+    require(all(len(t) == gen for t, _ in beams), "beam wave: short beam")
+    require(all(v > 0 for v in launches.values()) and plain == 0,
+            f"beam wave: launches {launches}, plain {plain}")
+    require(cows > 0 and active1 == active0,
+            f"beam wave: {cows} CoW copies, active {active0} -> {active1}")
+    require(n_fork_ev == forks and forks >= w - 1,
+            f"beam wave: {n_fork_ev} EV_FORK in the trace, {forks} pool forks")
+    oracle_check(torch, np, model, cfg, [prompt], [one[0][0]],
+                 "beam wave (l) width 1", SPEC_ORACLE_MARGIN["fp16"])
+    print(f"[smoke] beam wave (l): width 1 first part from the greedy stream "
+          f"(request, position): {first_part(np, [one[0][0]], [greedy])}")
+    need = (len(ctx1) - 1) // bs * bs
+    print(f"[smoke] session wave (l): turn 2 ({len(ctx1) + 40} tokens) hit "
+          f"{t2.prefix_hit_tokens} prefix tokens of turn 1's {len(ctx1) - 1} "
+          f"pooled ({need} in whole blocks); close_session released "
+          f"{released} pinned blocks; active blocks now {pool.num_active()}")
+    require(t2.prefix_hit_tokens >= need, f"session: {t2.prefix_hit_tokens} "
+            f"prefix-hit tokens < {need}")
+    require(released > 0 and pool.num_active() == active0,
+            f"session: released {released}, active {pool.num_active()}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def moe_phase(torch, np):
+    """Waves (m) and (n): full-width deepseek-moe-16b (28 layers, d_model
+    2048, 64 routed experts top-6 plus 2 shared, bf16, random weights
+    from a seed) on the phase-4 stream with its vocab, at the published
+    capacity factor 1.25 (m) and drop-free (n).  Returns nothing: the
+    kernel table's launches come from granite's main path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("deepseek-moe-16b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    print(f"[smoke] deepseek-moe-16b full width: {n_params / 1e9:.3f}B params "
+          f"{cfg.dtype} ({n_params * 2 / 1e9:.2f} GB), {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token} + {cfg.num_shared_experts} shared, cf "
+          f"{cfg.capacity_factor}, init {time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    _, prompts = shared_prefix_stream(np.random.default_rng(1), np,
+                                      cfg.vocab_size, 16)
+    moe_kernel_vs_plain(torch, np, model, cfg, prompts[:4])
+    moe_engine_waves(torch, np, model, cfg, prompts)
+    moe_drop_free_wave(torch, np, model, cfg, prompts)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_kernel_vs_plain(torch, np, model, cfg, prompts, gen=32, length=128):
+    """Wave (m), the kernel path held to the plain path on the SAME batch:
+    at cf 1.25 the expert drops depend on every token of a batch, so
+    ``forward()`` is no oracle, and the two engines' streams part once a
+    rounding flips a token.  Four 128-token rows (t = 512, one group) go
+    through ``span_step`` and then ``gen`` decode steps over the paged
+    pool under kernel_mode pallas (kernels 2 and 1) and xla (the plain
+    path), each step fed the pallas argmax: at every step the plain
+    path's logit of that token lies within ``MOE_MARGIN`` of its own
+    argmax, and is its argmax wherever its top-2 margin exceeds
+    ``MOE_MARGIN``."""
+    from repro_torch.kernels.attention import flash, ops, paged
+
+    b, bs = len(prompts), 16
+    w = (length + gen) // bs + 1
+    tables = (1 + torch.arange(b * w, device="cuda", dtype=torch.int32)
+              ).reshape(b, w)
+    tokens = torch.tensor(np.stack([p[:length] for p in prompts]),
+                          device="cuda")
+    zeros = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    views = {m: model.serving_view(cfg.replace(kernel_mode=m))
+             for m in ("pallas", "xla")}
+    pools = {m: {n: torch.zeros(shape, dtype=dt, device="cuda") for n, (shape, dt)
+                 in v.paged_cache_specs(b, b * w + 1, bs).items()}
+             for m, v in views.items()}
+    v = cfg.vocab_size
+    worst, checked, under, max_diff = 0.0, 0, 0, 0.0
+    ops.reset_counts()
+    with torch.inference_mode():
+        lg = {m: views[m].span_step(pools[m], tokens, zeros, zeros + length,
+                                    tables)[:, -1, :v] for m in views}
+        for i in range(gen + 1):
+            tok = lg["pallas"].argmax(-1)
+            x = lg["xla"].float()
+            top2 = x.topk(2, dim=-1).values
+            gap = (top2[:, 0] - x.gather(1, tok[:, None])[:, 0]).cpu().numpy()
+            sure = ((top2[:, 0] - top2[:, 1]) > MOE_MARGIN).cpu().numpy()
+            agree = (x.argmax(-1) == tok).cpu().numpy()
+            require((gap <= MOE_MARGIN).all() and agree[sure].all(),
+                    f"moe kernel vs plain, step {i}: gaps {gap}, argmax agree "
+                    f"{agree} where the top-2 margin > {MOE_MARGIN}: {sure}")
+            worst = max(worst, float(gap.max()))
+            checked += int(sure.sum())
+            under += int((~sure).sum())
+            max_diff = max(max_diff, (lg["pallas"].float() - x).abs().max()
+                           .item())
+            if i == gen:
+                break
+            idx = zeros + length + i
+            lg = {m: views[m].decode_step(pools[m], tok.to(torch.int32), idx,
+                                          tables)[:, :v] for m in views}
+    launches = {"paged_decode": ops.paged_attention.launches,
+                "paged_span": ops.paged_span_attention.launches}
+    plain = paged.paged_decode_plain.calls + paged.paged_span_plain.calls \
+        + flash.flash_attention_plain.calls
+    print(f"[smoke] moe wave (m) kernel vs plain on one batch ({b} rows x "
+          f"{length} prompt tokens, {gen} decode steps, cf "
+          f"{cfg.capacity_factor}): plain logits at the kernel path's tokens "
+          f"within {worst:.4f} of their argmax (margin {MOE_MARGIN}); "
+          f"{checked} steps with a top-2 margin > {MOE_MARGIN} all agree, "
+          f"{under} under it; max |kernel - plain| logit {max_diff:.4f}; "
+          f"kernel launches {launches}, plain-path calls {plain} (the xla "
+          f"half)")
+    require(all(n > 0 for n in launches.values()),
+            f"moe kernel vs plain: kernel idle {launches}")
+
+
+def moe_engine_waves(torch, np, model, cfg, prompts):
+    """Wave (m), served: the phase-4 stream (8 requests of 200-512
+    tokens, 32 new each, 4 slots) through the unified engine under
+    kernel_mode pallas (both paged kernels launched, no plain attention;
+    tok/s, TTFT/TPOT, the pool's bytes per token, a profiled window with
+    the moe dispatch ops named) and xla (the token agreement with the
+    pallas streams is printed: at cf 1.25 a flipped token changes later
+    drops), then through the grouped-prefill engine (the flash and decode
+    kernels launched)."""
+    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.serve.engine import ContinuousServeEngine
+    from repro_torch.serve.step import UnifiedServeEngine
+
+    gen, bs = 32, 16
+    streams = {}
+
+    def plain_calls():
+        return (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
+                + flash.flash_attention_plain.calls)
+
+    for label, make in (
+            ("unified pallas", lambda: UnifiedServeEngine(
+                cfg.replace(kernel_mode="pallas"), model, device="cuda",
+                num_slots=4, max_len=512 + gen, block_size=bs)),
+            ("unified xla", lambda: UnifiedServeEngine(
+                cfg.replace(kernel_mode="xla"), model, device="cuda",
+                num_slots=4, max_len=512 + gen, block_size=bs)),
+            ("legacy pallas", lambda: ContinuousServeEngine(
+                cfg.replace(kernel_mode="pallas"), model, device="cuda",
+                num_slots=4, max_len=512 + gen, block_size=bs))):
+        eng = make()
+        warm = eng.submit(np.arange(40, dtype=np.int32), 2)
+        eng.run()
+        require(len(warm.tokens) == 2, f"moe {label}: warm-up unfinished")
+        stats0 = dict(eng.stats)
+        ops.reset_counts()
+        plain0 = plain_calls()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, gen) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        served(out, reqs, gen, cfg.vocab_size)
+        streams[label] = [out[r.rid] for r in reqs]
+        launches = {"flash_attention": ops.flash_attention.launches,
+                    "paged_decode": ops.paged_attention.launches,
+                    "paged_span": ops.paged_span_attention.launches}
+        plain = plain_calls() - plain0
+        tokens = eng.stats["tokens_decoded"] - stats0["tokens_decoded"]
+        ttft = np.percentile([r.ttft_ns() / 1e6 for r in reqs], [50, 95])
+        tpot = np.percentile([r.tpot_ns() / 1e6 for r in reqs], [50, 95])
+        print(f"[smoke] moe wave (m) {label}: {len(reqs)} requests, {tokens} "
+              f"tokens in {seconds:.2f}s = {tokens / seconds:.1f} tok/s; TTFT "
+              f"p50 {ttft[0]:.0f} / p95 {ttft[1]:.0f} ms, TPOT p50 "
+              f"{tpot[0]:.1f} / p95 {tpot[1]:.1f} ms; pool "
+              f"{eng.kv_bytes_per_token} B/token, peak "
+              f"{eng.stats['peak_blocks']} blocks, "
+              f"{eng.stats['prefix_hit_tokens'] - stats0['prefix_hit_tokens']} "
+              f"prefix-hit tokens; kernel launches {launches}, plain-path "
+              f"calls {plain}")
+        require(eng.kv_bytes_per_token == 229_376,
+                f"moe pool {eng.kv_bytes_per_token} B/token, not 229,376")
+        if label == "unified pallas":
+            require(launches["paged_decode"] > 0 and launches["paged_span"] > 0
+                    and plain == 0, f"moe {label}: {launches}, plain {plain}")
+            profile_window(torch, eng, [p[:256] for p in prompts[:4]], gen,
+                           "moe unified", families={
+                               "moe top-k sort": ("sort", "radix"),
+                               "moe cumsum": ("scan", "cumsum"),
+                               "moe one-hot / scatter / gather": (
+                                   "scatter", "gather", "index")})
+        elif label == "legacy pallas":
+            require(launches["flash_attention"] > 0
+                    and launches["paged_decode"] > 0 and plain == 0,
+                    f"moe {label}: {launches}, plain {plain}")
+        else:
+            require(sum(launches.values()) == 0 and plain > 0,
+                    f"moe {label}: {launches}, plain {plain}")
+        del eng
+        torch.cuda.empty_cache()
+    same = sum(np.array_equal(a, b) for a, b in
+               zip(streams["unified pallas"], streams["unified xla"]))
+    print(f"[smoke] moe wave (m): unified pallas vs xla streams identical for "
+          f"{same} of {len(prompts)} requests, first part (request, position) "
+          f"{first_part(np, streams['unified pallas'], streams['unified xla'])}"
+          f"; legacy vs unified first part "
+          f"{first_part(np, streams['unified pallas'], streams['legacy pallas'])}")
+
+
+def moe_drop_free_wave(torch, np, model, cfg, prompts):
+    """Wave (n): at cf 11 (>= E / k) no slot is dropped, so every grouping
+    computes the same function and ``forward()`` is an oracle again: the
+    unified engine's first token of each phase-4 prompt lies within
+    ``MOE_MARGIN`` of ``forward()``'s argmax logit."""
+    from repro_torch.serve.step import UnifiedServeEngine
+
+    free = cfg.replace(capacity_factor=MOE_DROP_FREE_CF)
+    eng = UnifiedServeEngine(free, model, device="cuda", num_slots=4,
+                             max_len=512 + 2, block_size=16)
+    reqs = [eng.submit(p, 2) for p in prompts]
+    out = eng.run()
+    served(out, reqs, 2, cfg.vocab_size)
+    check_first_tokens(torch, model.serving_view(free), free, prompts,
+                       [out[r.rid][0] for r in reqs],
+                       f"moe wave (n) drop-free cf {MOE_DROP_FREE_CF}",
+                       tol=MOE_MARGIN)
+    del eng
+    torch.cuda.empty_cache()
 
 
 def mamba2_wave(torch, np):
@@ -1705,13 +2146,16 @@ def mamba2_engine_waves(torch, np, cfg, model, prompts, unified_out):
     return launches, s_launches
 
 
-def profile_window(torch, eng, prompts, gen, label):
+def profile_window(torch, eng, prompts, gen, label, families=None):
     """Where the time goes: one wave (4 requests) under ``torch.profiler``,
-    recording device activity only (host op events as well multiply the
-    aggregation time); device-busy share of the wall time and the
-    device time by kernel family.  Runs outside the counted main-path
-    waves.  Returns the idle share (None when the profiler saw no device
-    time)."""
+    recording device activity only; device-busy share of the wall time
+    and the device time by kernel family (``families`` adds named ones).
+    Read from the profiler's raw device events, not ``key_averages()``
+    (whose event tree took ~30 s a window to build): the busy time is
+    printed both as the sum of kernel times (as before) and as the union
+    of their intervals (a programmatic dependent's wait overlaps its
+    predecessor).  Runs outside the counted main-path waves.  Returns the
+    idle share of the union (None when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1723,33 +2167,52 @@ def profile_window(torch, eng, prompts, gen, label):
         wall_ms = (time.perf_counter() - t0) * 1e3
     t_post = time.perf_counter()
     cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.key_averages() if e.device_type == cuda]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    kern = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and e.duration_ns() > 0]
+    busy_ms = sum(e.duration_ns() for e in kern) / 1e6
     if not kern or busy_ms <= 0:
         print(f"[smoke] {label} profile: no device time recorded (not measured)")
         return None
+    union_ns, end = 0, None
+    for a, b in sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                       for e in kern):
+        if end is None or a > end:
+            union_ns += b - a
+            end = b
+        elif b > end:
+            union_ns += b - end
+            end = b
+    union_ms = union_ns / 1e6
+    by_name: dict[str, list] = {}
+    for e in kern:
+        row = by_name.setdefault(e.name(), [0, 0])
+        row[0] += e.duration_ns()
+        row[1] += 1
     named = {f: (f,) for f in ("flash", "paged_decode", "paged_span",
                                "paged_merge")}
     named["ssd_scan"] = SSD_KERNELS
+    named.update(families or {})
     fams = dict.fromkeys((*named, "gemm", "other"), 0.0)
-    for e in kern:
-        n = e.key.lower()
+    for name, (ns, _) in by_name.items():
+        n = name.lower()
         fam = next((f for f, keys in named.items() if any(k in n for k in keys)),
                    None) or (
             "gemm" if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet"))
             else "other")
-        fams[fam] += e.self_device_time_total / 1e3
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    idle = 1 - busy_ms / wall_ms
+        fams[fam] += ns / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    idle = 1 - union_ms / wall_ms
     print(f"[smoke] {label} profile ({len(prompts)} requests x {gen} tokens): "
           f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({busy_ms / wall_ms:.1%}), idle {idle:.1%}; aggregation "
+          f"({busy_ms / wall_ms:.1%}; union of intervals {union_ms:.1f} ms), "
+          f"idle {1 - busy_ms / wall_ms:.1%} (of the union {idle:.1%}); "
+          f"aggregation "
           f"{time.perf_counter() - t_post:.1f} s")
     print(f"[smoke] {label} profile device time by family: " + ", ".join(
         f"{k} {v:.1f} ms ({v / busy_ms:.1%})" for k, v in fams.items()))
-    for e in top:
-        print(f"[smoke] {label} profile top: {e.self_device_time_total / 1e3:8.2f}"
-              f" ms x{e.count:<6} {e.key[:90]}")
+    for name, (ns, count) in top:
+        print(f"[smoke] {label} profile top: {ns / 1e6:8.2f}"
+              f" ms x{count:<6} {name[:90]}")
     return idle
 
 
@@ -1961,6 +2424,7 @@ def main() -> int:
     timings.update(timed("flash kernel", flash_phase))
     timings.update(timed("ssd scan kernel", ssd_phase))
     launches = timed("full width", full_width_phase)
+    timed("deepseek-moe", moe_phase)
     launches.update(timed("mamba2 wave", mamba2_wave))
     timed("reduced", reduced_phase)
     print(f"[smoke] phase wall seconds: {phase_s}")

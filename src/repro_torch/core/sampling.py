@@ -16,6 +16,32 @@ import torch
 
 NEG_FILTERED = -2.0e38  # mask value for filtered-out vocab entries
 
+# the fork plane of the seed derivation: the engine's dispatch seeds are
+# hashed from (seed, dispatch, salt) with small salts, so a fork seed can
+# never collide with a dispatch stream
+_FORK_SALT = 1 << 19
+_SEED_MASK = 2**62 - 1
+
+
+def fork_seed(seed: int, fork_index: int) -> int:
+    """Generator seed of fork ``fork_index`` of an n-way fan sampled from
+    a generator seeded with ``seed`` (``repro.core.sampling.fork_key``).
+    Fork 0 is the parent and keeps ``seed`` unchanged, so its stream is
+    bit-identical to an unforked request's; siblings get seeds that are
+    pure functions of (seed, fork index), so one engine seed reproduces
+    every stream of the fan."""
+    if fork_index == 0:
+        return int(seed)
+    return hash((int(seed), _FORK_SALT + int(fork_index))) & _SEED_MASK
+
+
+def top_k(x, k: int):
+    """(values, indices) of the ``k`` largest entries on the last axis,
+    largest first and the lower index first among equal values — the
+    order of ``jax.lax.top_k``, which ``torch.topk`` does not promise."""
+    srt = torch.sort(x, dim=-1, descending=True, stable=True)
+    return srt.values[..., :k], srt.indices[..., :k]
+
 
 def filter_logits(lg, top_k: int = 0, top_p: float = 1.0):
     """Top-k then nucleus (top-p) filtering over the last axis.  The

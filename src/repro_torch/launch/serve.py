@@ -12,6 +12,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --spec ngram --spec-k 4 --spec-adaptive
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch deepseek-moe-16b --n 3 --temperature 0.8
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --beam 4 --requests 2 --gen 6
+
 Takes the flags and defaults of ``python -m repro.launch.serve`` for the
 single-engine paths and serves ``reduced(get_config(arch))`` with random
 weights from ``--seed`` through ``--mode unified``
@@ -27,16 +33,23 @@ or, explicitly, the CPU.  ``--kv-dtype int8|fp8`` quantizes the paged
 pool of the unified and continuous modes (the pool line prints its
 storage and bytes per token); ``--mode static`` keeps contiguous caches
 in the model dtype, as the JAX CLI does.  ``--arch`` takes the dense
-family and mamba2-370m (ssm), which every mode serves: whole-prompt
-admission through the SSD scan kernel, no pool and no prefix cache (the
-unified-step line says so and no pool line is printed).  ``--spec
+family, the moe family (deepseek-moe-16b, mixtral-8x22b: the same
+attention kernels with a plain-torch expert FFN) and mamba2-370m (ssm),
+which every mode serves: whole-prompt admission through the SSD scan
+kernel, no pool and no prefix cache (the unified-step line says so and no
+pool line is printed).  ``--spec
 ngram|draft:<arch>`` turns on the speculative lane of ``--mode unified``
 (``--spec-k`` drafts a slot, ``--spec-adaptive`` walks K with the
 acceptance rate; a ``draft:`` model is the one-layer reduced ``<arch>``
 with random weights from ``--seed + 1``, on ``--device``) and prints the
-draft economy, read again from the trace under ``--trace``.  Flags of
-paths not ported yet (meshes, replicas, forks, beams, sessions, the
-two-deep overlap pipeline) stop with an error naming the flag.
+draft economy, read again from the trace under ``--trace``.  The unified
+mode's fork path takes ``--n N`` (each prompt prefills once and forks
+into N CoW decode streams; ``--best-of N`` is sugar for it), ``--beam W``
+(beam search of each prompt, one at a time) and ``--session`` (each
+prompt as a two-turn conversation whose turn 2 must hit the pinned
+turn-1 context), with the JAX CLI's exclusions.  Flags of paths not
+ported yet (meshes, replicas, the two-deep overlap pipeline) stop with
+an error naming the flag.
 """
 from __future__ import annotations
 
@@ -49,8 +62,7 @@ import numpy as np
 # flag -> the values the ported paths serve; any other value selects a
 # path that is not ported yet
 _PORTED_VALUES = {
-    "mesh": ("",), "mp": (0,), "n": (1,), "best_of": (0,), "beam": (0,),
-    "session": (False,),
+    "mesh": ("",), "mp": (0,),
     "overlap": ("", "off", "auto"), "replicas": (0,), "disaggregate": (False,),
 }
 
@@ -77,10 +89,20 @@ def main(argv=None):
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--gen", type=int, default=32)
-    p.add_argument("--n", type=int, default=1)
-    p.add_argument("--best-of", type=int, default=0)
-    p.add_argument("--beam", type=int, default=0)
-    p.add_argument("--session", action="store_true")
+    p.add_argument("--n", type=int, default=1,
+                   help="samples per prompt: one prefill, then n CoW decode "
+                        "streams aliasing the prompt blocks (unified mode)")
+    p.add_argument("--best-of", type=int, default=0,
+                   help="candidate count: sugar for --n N (ranking the "
+                        "candidates is the caller's job)")
+    p.add_argument("--beam", type=int, default=0,
+                   help="beam search width: fork-based beams on the CoW "
+                        "pool, summed log-prob ranking (unified mode, "
+                        "prompts one at a time)")
+    p.add_argument("--session", action="store_true",
+                   help="serve each prompt as a 2-turn conversation: turn 2 "
+                        "re-submits the turn-1 context + 8 fresh tokens and "
+                        "must hit the pinned blocks (unified mode)")
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--top-p", type=float, default=1.0)
@@ -117,6 +139,18 @@ def main(argv=None):
         p.error("--flush-every streams the trace and requires --trace")
     if args.spec and args.mode != "unified":
         p.error("--spec is a unified-engine lane (--mode unified)")
+    if args.best_of:
+        if args.n > 1 and args.n != args.best_of:
+            p.error("--best-of implies --n; pick one")
+        args.n = args.best_of
+    if (args.n > 1 or args.beam or args.session) and args.mode != "unified":
+        p.error("--n/--best-of/--beam/--session ride the unified engine's "
+                "CoW fork path (--mode unified)")
+    if args.beam and (args.n > 1 or args.session):
+        p.error("--beam is a standalone search (no --n/--session)")
+    if args.session and args.n > 1:
+        p.error("--session persists ONE stream; fan-out is per-request "
+                "(--n) — they are mutually exclusive")
 
     from repro_torch import core as xtrace
     from repro_torch.configs import all_arch_names, get_config, reduced
@@ -129,9 +163,9 @@ def main(argv=None):
         p.error(f"unknown --arch {args.arch!r} (choose from "
                 f"{', '.join(all_arch_names())})")
     cfg = reduced(get_config(args.arch))
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         p.error(f"--arch {args.arch} is family {cfg.family!r}; repro_torch "
-                f"serves the dense and ssm families only")
+                f"serves the dense, moe and ssm families only")
     if args.kernel_mode:
         cfg = cfg.replace(kernel_mode=args.kernel_mode)
     if args.kv_dtype:
@@ -139,7 +173,11 @@ def main(argv=None):
     model = build_model(cfg, device=args.device, seed=args.seed)
     out = pathlib.Path(args.out)
     slots = min(args.slots, args.requests)
+    if args.beam:
+        slots = max(slots, args.beam)  # beams borrow the slot rows
     max_len = args.prompt_len + args.gen
+    if args.session:  # turn 2 = turn-1 context + 8 follow-up + gen more
+        max_len += args.gen + 8
     tracer = xtrace.init(f"serve-{args.arch}") if args.trace else None
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
@@ -155,9 +193,17 @@ def main(argv=None):
     else:
         if args.flush_every:
             out.mkdir(parents=True, exist_ok=True)
+        num_blocks = args.num_blocks or None
+        if args.session and num_blocks is None:
+            # each conversation's context stays pinned in the pool between
+            # turns: room for one per request beside the slots' own blocks
+            # (the JAX CLI keeps the slots-only default, which the pins
+            # fill at its default flags until its loop stalls)
+            num_blocks = ((slots + args.requests)
+                          * -(-max_len // args.block_size) + 1)
         common = dict(
             device=args.device, num_slots=slots, max_len=max_len,
-            block_size=args.block_size, num_blocks=args.num_blocks or None,
+            block_size=args.block_size, num_blocks=num_blocks,
             prefix_cache=not args.no_prefix_cache, tracer=tracer,
             temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
             seed=args.seed, flush_every=args.flush_every,
@@ -176,11 +222,43 @@ def main(argv=None):
                 mixed_burst=args.mixed_burst, **spec, **common)
         else:
             engine = ContinuousServeEngine(cfg, model, **common)
-        # staggered prompt lengths exercise variable-length admission
-        for i in range(args.requests):
-            plen = max(1, args.prompt_len - (i % 4))
-            engine.submit(prompts[i, :plen], args.gen)
-        engine.run()
+        if args.beam:
+            # standalone model-scored search: one prompt at a time on the
+            # idle engine (beams borrow the slot rows)
+            for i in range(args.requests):
+                plen = max(1, args.prompt_len - (i % 4))
+                beams = engine.beam_search(prompts[i, :plen], args.gen,
+                                           width=args.beam)
+                print(f"[serve] beam prompt {i}: width {args.beam}, best "
+                      f"sum-log-prob {beams[0][1]:.3f} "
+                      f"(worst kept {beams[-1][1]:.3f})")
+        elif args.session:
+            # 2-turn conversations: turn 2 extends turn 1's full context
+            # and must serve it from the session's pinned blocks
+            t1 = []
+            for i in range(args.requests):
+                plen = max(1, args.prompt_len - (i % 4))
+                t1.append(engine.submit(prompts[i, :plen], args.gen,
+                                        session=f"s{i}"))
+            out1 = engine.run()
+            t2 = []
+            for i, r in enumerate(t1):
+                follow = rng.integers(0, cfg.vocab_size, (8,)).astype(np.int32)
+                ctx = np.concatenate([r.prompt, out1[r.rid], follow])
+                t2.append(engine.submit(ctx, args.gen, session=f"s{i}"))
+            engine.run()
+            hit = sum(r.prefix_hit_tokens for r in t2)
+            need = sum(r.prompt_len for r in t2)
+            print(f"[serve] sessions: {len(t2)} turn-2 requests, "
+                  f"{hit}/{need} prompt tokens served from pinned context")
+            for i in range(args.requests):
+                engine.close_session(f"s{i}")
+        else:
+            # staggered prompt lengths exercise variable-length admission
+            for i in range(args.requests):
+                plen = max(1, args.prompt_len - (i % 4))
+                engine.submit(prompts[i, :plen], args.gen, n_samples=args.n)
+            engine.run()
         stats = engine.throughput_stats()
     device = engine.device
     print(f"[serve] {args.arch} mode={args.mode} device={device}: "
@@ -198,6 +276,11 @@ def main(argv=None):
         counts = " ".join(f"{k}={v}" for k, v in sorted(
             stats["kernel_dispatch"].items())) or "none recorded"
         print(f"[serve] attention kernels (mode={cfg.kernel_mode}): {counts}")
+        if stats.get("forks", 0):
+            print(f"[serve] CoW forking: {stats['forks']} forks, "
+                  f"{stats['cow_copies']} block copies, peak "
+                  f"{stats['peak_shared']} blocks shared "
+                  f"(n={args.beam or args.n} per prompt)")
     if args.mode == "unified":
         note = ("on" if engine.chunkable
                 else "off — state-carrying family, whole-prompt admission")
@@ -237,6 +320,11 @@ def main(argv=None):
                   f"{sp['drafted']} drafts accepted "
                   f"({sp['acceptance']:.0%}) over {sp['dispatches']} "
                   f"verify dispatches")
+        if lat["forks"]["count"]:
+            fk = lat["forks"]
+            print(f"[serve] forks (from trace): {fk['count']} children off "
+                  f"{fk['parents']} parents, peak "
+                  f"{fk['peak_shared_blocks']} blocks shared")
     return 0
 
 

@@ -8,7 +8,10 @@ The JAX tree of a dense ``DecoderLM`` (``transformer.stack_decl``) is::
                          "mlp": {"w_up", "w_gate", "w_down": {"w"}}}},
      "final_norm": {"scale"}}
 
-with a leading ``layers`` axis on every ``units`` leaf; an ssm stack's
+with a leading ``layers`` axis on every ``units`` leaf; a moe unit holds
+``"moe": {"router": {"w"}, "experts": {"w_gate", "w_up", "w_down"},
+"shared": {"w_gate", "w_up", "w_down": {"w"}}}`` (experts ``[L, E, ...]``,
+``shared`` only with shared experts) in place of ``"mlp"``; an ssm stack's
 unit is ``{"mamba": {"norm": {"scale"}, "wz", "wx", "wb", "wc", "wdt":
 {"w"}, "conv_x", "conv_x_b", "conv_b", "conv_b_b", "conv_c", "conv_c_b",
 "A_log", "D", "dt_bias", "out_norm": {"scale"}, "out_proj": {"w"}}}``
@@ -53,8 +56,15 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
             leaves[f"attn.w{n}"] = proj["w"]
             if "b" in proj:
                 leaves[f"attn.b{n}"] = proj["b"]
-        for name, proj in units["mlp"].items():
+        for name, proj in units.get("mlp", {}).items():
             leaves[f"mlp.{name}"] = proj["w"]
+        if "moe" in units:
+            m = units["moe"]
+            leaves["moe.router"] = m["router"]["w"]
+            for name, w in m["experts"].items():
+                leaves[f"moe.{name}"] = w
+            for name, proj in m.get("shared", {}).items():
+                leaves[f"moe.shared_{name}"] = proj["w"]
     stacked = {k: _tensor(v) for k, v in leaves.items()}
     num_layers = next(iter(stacked.values())).shape[0]
     for i in range(num_layers):

@@ -1,8 +1,9 @@
 """Model facade: ``build_model(cfg, device=...)`` -> :class:`DecoderLM`.
 
 The port's slices are the dense decoder (granite, yi, codeqwen,
-mistral-large) and the ssm family (mamba2); other families raise
-``NotImplementedError``.  Weights are
+mistral-large), the moe family (deepseek-moe, mixtral: the dense
+attention with a mixture-of-experts FFN) and the ssm family (mamba2);
+other families raise ``NotImplementedError``.  Weights are
 drawn from a seeded ``torch.Generator`` on the target device
 (:mod:`repro_torch.models.params`), or loaded from the JAX package's tree
 with ``model.load_state_dict(convert.params_from_jax(tree))``.
@@ -35,8 +36,8 @@ def resolve_device(device) -> torch.device:
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM: embedding, ``num_layers`` dense or ssm units,
-    final RMSNorm, LM head over the padded vocab."""
+    """Decoder-only LM: embedding, ``num_layers`` dense, moe or ssm
+    units, final RMSNorm, LM head over the padded vocab."""
 
     def __init__(self, cfg: ModelConfig, *, device, seed: int = 0):
         super().__init__()
@@ -74,10 +75,19 @@ class DecoderLM(nn.Module):
             for n in "qkv":
                 if "b" in a[f"w{n}"]:
                     attn[f"b{n}"] = init(a[f"w{n}"]["b"], a[f"w{n}"]["b"].shape[1:])
-            mlp = {k: init(v["w"], v["w"].shape[1:])
-                   for k, v in units["mlp"].items()}
             ln = layer_slice({"ln1": units["ln1"]["scale"],
                               "ln2": units["ln2"]["scale"]})
+            if cfg.family == "moe":
+                m = units["moe"]
+                moe = {"router": init(m["router"]["w"],
+                                      m["router"]["w"].shape[1:])}
+                moe.update(layer_slice(m["experts"]))
+                for k, v in m.get("shared", {}).items():
+                    moe[f"shared_{k}"] = init(v["w"], v["w"].shape[1:])
+                layers.append(tf_mod.MoELayer(ln["ln1"], attn, ln["ln2"], moe))
+                continue
+            mlp = {k: init(v["w"], v["w"].shape[1:])
+                   for k, v in units["mlp"].items()}
             layers.append(tf_mod.DenseLayer(ln["ln1"], attn, ln["ln2"], mlp))
         self.layers = nn.ModuleList(layers)
         self.final_norm = RMSNorm(init(decls["final_norm"]["scale"]))
@@ -89,14 +99,18 @@ class DecoderLM(nn.Module):
     def serving_view(self, cfg: ModelConfig) -> "DecoderLM":
         """These weights run under ``cfg``, which may differ from the
         model's own config only in how it is served (``kv_dtype``,
-        ``kernel_mode``): a shallow copy sharing every parameter, so one
-        model object serves native and quantized pools alike."""
+        ``kernel_mode``, and a moe layer's ``capacity_factor`` and
+        ``moe_impl``): a shallow copy sharing every parameter, so one
+        model object serves native and quantized pools, kernel and plain
+        paths, and any expert capacity alike."""
         if cfg == self.cfg:
             return self
-        if self.cfg.replace(kv_dtype=cfg.kv_dtype,
-                            kernel_mode=cfg.kernel_mode) != cfg:
+        if self.cfg.replace(kv_dtype=cfg.kv_dtype, kernel_mode=cfg.kernel_mode,
+                            capacity_factor=cfg.capacity_factor,
+                            moe_impl=cfg.moe_impl) != cfg:
             raise ValueError("the engine's config differs from the model's "
-                             "beyond kv_dtype and kernel_mode")
+                             "beyond kv_dtype, kernel_mode, capacity_factor "
+                             "and moe_impl")
         view = copy.copy(self)
         view.cfg = cfg
         return view
@@ -116,13 +130,19 @@ class DecoderLM(nn.Module):
             logits = torch.tanh(logits / c) * c
         return logits
 
-    def forward(self, tokens):
+    def forward(self, tokens, with_aux: bool = False):
         """tokens [B, S] -> float32 logits [B, S, V_padded]; causal
         self-attention (or the ssm scan) over the whole sequence, no
-        cache."""
+        cache.  ``with_aux`` returns (logits, aux) instead, aux the moe
+        load-balance loss summed over the layers (0 for other families),
+        as the JAX ``forward``'s third output."""
         x = embed_tokens(self.embedding, tokens, self.dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x, _ = tf_mod.apply_stack(self.layers, x, self.cfg, positions=positions)
+        x, _, aux = tf_mod.apply_stack(self.layers, x, self.cfg,
+                                       positions=positions)
+        if with_aux:
+            return self._logits(x), torch.as_tensor(
+                aux, dtype=torch.float32, device=x.device)
         return self._logits(x)
 
     def prefill(self, tokens, max_len: int | None = None, ring: bool = True):
@@ -135,9 +155,9 @@ class DecoderLM(nn.Module):
         "conv_c"} [L, B, ...], and ignores both."""
         x = embed_tokens(self.embedding, tokens, self.dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x, caches = tf_mod.apply_stack(self.layers, x, self.cfg,
-                                       positions=positions, mode="prefill",
-                                       cache_len=max_len, ring=ring)
+        x, caches, _ = tf_mod.apply_stack(self.layers, x, self.cfg,
+                                          positions=positions, mode="prefill",
+                                          cache_len=max_len, ring=ring)
         return caches, self._logits(x[:, -1:])[:, 0]
 
     def prefill_chunk(self, tokens, prefix, start: int):
@@ -150,9 +170,9 @@ class DecoderLM(nn.Module):
         x = embed_tokens(self.embedding, tokens, self.dtype)
         positions = torch.arange(start, start + tokens.shape[1],
                                  device=tokens.device)
-        x, tail = tf_mod.apply_stack(self.layers, x, self.cfg,
-                                     positions=positions, caches=prefix,
-                                     mode="decode")
+        x, tail, _ = tf_mod.apply_stack(self.layers, x, self.cfg,
+                                        positions=positions, caches=prefix,
+                                        mode="decode")
         return tail, self._logits(x[:, -1:])[:, 0]
 
     def decode_step(self, caches, tokens, index, block_tables=None):
@@ -165,9 +185,10 @@ class DecoderLM(nn.Module):
         logits [B, V_padded]."""
         x = embed_tokens(self.embedding, tokens[:, None], self.dtype)
         positions = index[:, None] if index.dim() else index.reshape(1)
-        x, _ = tf_mod.apply_stack(self.layers, x, self.cfg, positions=positions,
-                                  caches=caches, index=index,
-                                  block_tables=block_tables, mode="decode")
+        x, _, _ = tf_mod.apply_stack(self.layers, x, self.cfg,
+                                     positions=positions, caches=caches,
+                                     index=index, block_tables=block_tables,
+                                     mode="decode")
         return self._logits(x)[:, 0]
 
     def span_step(self, pool, tokens, row_start, row_len, block_tables):
@@ -180,10 +201,11 @@ class DecoderLM(nn.Module):
         x = embed_tokens(self.embedding, tokens, self.dtype)
         positions = row_start[:, None] + torch.arange(
             tokens.shape[1], dtype=row_start.dtype, device=tokens.device)[None]
-        x, _ = tf_mod.apply_stack(self.layers, x, self.cfg, positions=positions,
-                                  caches=pool, index=row_start,
-                                  block_tables=block_tables, row_len=row_len,
-                                  mode="decode")
+        x, _, _ = tf_mod.apply_stack(self.layers, x, self.cfg,
+                                     positions=positions, caches=pool,
+                                     index=row_start,
+                                     block_tables=block_tables,
+                                     row_len=row_len, mode="decode")
         return self._logits(x)
 
     def _attention_only(self, what: str):

@@ -1,5 +1,5 @@
-"""Parameter declarations and seeded initialisation for the dense and
-ssm (Mamba-2) decoders.
+"""Parameter declarations and seeded initialisation for the dense, moe
+and ssm (Mamba-2) decoders.
 
 The JAX package declares every parameter once as a ``ParamDecl`` (shape +
 initializer) and initialises the whole layers-stacked tree from one PRNG
@@ -45,8 +45,8 @@ def padded_vocab(vocab_size: int, multiple: int = 128) -> int:
     return (vocab_size + multiple - 1) // multiple * multiple
 
 
-def _dense(in_dim, out_dims, *, bias=False):
-    d = {"w": ParamDecl((in_dim, *out_dims))}
+def _dense(in_dim, out_dims, *, bias=False, scale=None):
+    d = {"w": ParamDecl((in_dim, *out_dims), scale=scale)}
     if bias:
         d["b"] = ParamDecl(tuple(out_dims), "zeros", dtype=torch.float32)
     return d
@@ -58,14 +58,32 @@ def _stack(tree, n: int):
     return {k: _stack(v, n) for k, v in tree.items()}
 
 
-FAMILIES = ("dense", "ssm")  # the ported layer families
+FAMILIES = ("dense", "moe", "ssm")  # the ported layer families
 
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"repro_torch ports the dense and ssm families only; "
+            f"repro_torch ports the dense, moe and ssm families only; "
             f"{cfg.name!r} is family {cfg.family!r}")
+
+
+def moe_decl(cfg) -> dict:
+    """One MoE FFN (``repro.models.moe.moe_decl``): the router (stddev
+    0.02), the experts stacked on a leading E axis and, with shared
+    experts, one dense gated FFN ``num_shared_experts`` experts wide."""
+    d, ff, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
+    decl = {
+        "router": _dense(d, (e,), scale=0.02),
+        "experts": {"w_gate": ParamDecl((e, d, ff)),
+                    "w_up": ParamDecl((e, d, ff)),
+                    "w_down": ParamDecl((e, ff, d))},
+    }
+    if cfg.num_shared_experts:
+        sf = cfg.num_shared_experts * ff
+        decl["shared"] = {"w_gate": _dense(d, (sf,)), "w_up": _dense(d, (sf,)),
+                          "w_down": _dense(sf, (d,))}
+    return decl
 
 
 def _mamba2(cfg) -> dict:
@@ -93,9 +111,10 @@ def _mamba2(cfg) -> dict:
 
 
 def decl_tree(cfg) -> dict:
-    """The JAX ``DecoderLM.decl()`` tree for a dense or ssm config,
+    """The JAX ``DecoderLM.decl()`` tree for a dense, moe or ssm config,
     layers-stacked: ``{"embed", "stack": {"units": ...}, "final_norm"}``
-    (an ssm unit is ``{"mamba": ...}``, ``transformer.layer_decl``)."""
+    (an ssm unit is ``{"mamba": ...}``; a moe unit holds ``"moe"`` in
+    place of ``"mlp"``, ``transformer.layer_decl``)."""
     check_family(cfg)
     d = cfg.d_model
     v = padded_vocab(cfg.vocab_size)
@@ -111,10 +130,6 @@ def decl_tree(cfg) -> dict:
                                           cfg.num_layers)},
                 "final_norm": dict(norm)}
     hd, ff = cfg.head_dim, cfg.d_ff
-    mlp = {"w_up": _dense(d, (ff,))}
-    if cfg.gated_mlp:
-        mlp["w_gate"] = _dense(d, (ff,))
-    mlp["w_down"] = _dense(ff, (d,))
     layer = {
         "ln1": dict(norm), "ln2": dict(norm),
         "attn": {
@@ -123,8 +138,15 @@ def decl_tree(cfg) -> dict:
             "wv": _dense(d, (cfg.num_kv_heads, hd), bias=cfg.qkv_bias),
             "wo": {"w": ParamDecl((cfg.num_heads, hd, d))},
         },
-        "mlp": mlp,
     }
+    if cfg.family == "moe":
+        layer["moe"] = moe_decl(cfg)
+    else:
+        mlp = {"w_up": _dense(d, (ff,))}
+        if cfg.gated_mlp:
+            mlp["w_gate"] = _dense(d, (ff,))
+        mlp["w_down"] = _dense(ff, (d,))
+        layer["mlp"] = mlp
     return {"embed": embed, "stack": {"units": _stack(layer, cfg.num_layers)},
             "final_norm": dict(norm)}
 

@@ -1,8 +1,10 @@
 """Decoder stack for the ``dense`` layer kind (pre-norm attention + SwiGLU
-MLP, residual adds) and the ``ssm`` kind (a Mamba-2 unit,
-:mod:`repro_torch.models.ssm`) — ``repro.models.transformer`` with the
-``lax.scan`` over stacked layers written as a Python loop over
-``nn.Module`` layers.
+MLP, residual adds), the ``moe`` kind (the same attention, then the
+mixture-of-experts FFN of :mod:`repro_torch.models.moe` in place of the
+MLP; its load-balance loss summed over the layers) and the ``ssm`` kind
+(a Mamba-2 unit, :mod:`repro_torch.models.ssm`) — ``repro.models.
+transformer`` with the ``lax.scan`` over stacked layers written as a
+Python loop over ``nn.Module`` layers.
 
 One loop serves every mode: forward (no cache, the full-recompute
 oracle), prefill (returns each layer's fresh K/V, or its ssm decode
@@ -17,6 +19,7 @@ from torch import nn
 
 from repro_torch.core import quant
 from repro_torch.models.attention import Attention, attention_block
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import RMSNorm, apply_mlp, rmsnorm
 
@@ -44,6 +47,18 @@ class DenseLayer(nn.Module):
         self.mlp = MLP(mlp)
 
 
+class MoELayer(nn.Module):
+    """One ``moe`` unit: ln1 -> attention -> residual, ln2 -> MoE FFN ->
+    residual."""
+
+    def __init__(self, ln1, attn: dict, ln2, moe: dict):
+        super().__init__()
+        self.ln1 = RMSNorm(ln1)
+        self.attn = Attention(attn)
+        self.ln2 = RMSNorm(ln2)
+        self.moe = moe_mod.MoE(moe)
+
+
 class SSMLayer(nn.Module):
     """One ``ssm`` unit: ``{"mamba": ...}`` as the JAX ``layer_decl``."""
 
@@ -52,10 +67,12 @@ class SSMLayer(nn.Module):
         self.mamba = ssm.Mamba2(mamba)
 
 
-def apply_layer(layer: DenseLayer, x, cfg, *, positions, cache=None,
+def apply_layer(layer, x, cfg, *, positions, cache=None,
                 index=None, block_tables=None, row_len=None, build_cache=False,
                 cache_len=None, ring=True):
-    """-> (x, new_cache) — see :func:`attention_block` for the cache modes."""
+    """A dense or moe unit -> (x, new_cache, aux); aux is the moe load-
+    balance loss (0.0 for a dense unit).  See :func:`attention_block` for
+    the cache modes."""
     h = rmsnorm(layer.ln1.scale, x, cfg.norm_eps)
     y, new_cache = attention_block(
         layer.attn, h, cfg, positions=positions, cache=cache, index=index,
@@ -63,13 +80,17 @@ def apply_layer(layer: DenseLayer, x, cfg, *, positions, cache=None,
         cache_len=cache_len, ring=ring)
     x = x + y
     h = rmsnorm(layer.ln2.scale, x, cfg.norm_eps)
-    return x + apply_mlp(layer.mlp, h, cfg.act), new_cache
+    if isinstance(layer, MoELayer):
+        y, aux = moe_mod.moe_block(layer.moe, h, cfg)
+        return x + y, new_cache, aux
+    return x + apply_mlp(layer.mlp, h, cfg.act), new_cache, 0.0
 
 
 def apply_stack(layers, x, cfg, *, positions, caches=None, index=None,
                 block_tables=None, row_len=None, mode="forward",
                 cache_len=None, ring=True):
-    """Run every layer; returns (x, new_caches).
+    """Run every layer; returns (x, new_caches, aux) — aux the moe
+    layers' load-balance loss summed over the stack (0.0 without one).
 
     ``mode``: "forward" (no caches; new_caches None), "prefill" (new_caches
     = each layer's fresh K/V stacked: {"k", "v"} [L, B, C, Hkv, D];
@@ -93,6 +114,7 @@ def apply_stack(layers, x, cfg, *, positions, caches=None, index=None,
     if mode not in ("forward", "prefill", "decode"):
         raise ValueError(f"apply_stack mode {mode!r}")
     outs = []
+    aux = 0.0
     for i, layer in enumerate(layers):
         lc = None if caches is None else {n: t[i] for n, t in caches.items()}
         if isinstance(layer, SSMLayer):
@@ -103,16 +125,17 @@ def apply_stack(layers, x, cfg, *, positions, caches=None, index=None,
             elif mode == "prefill":
                 outs.append(c)
             continue
-        x, c = apply_layer(layer, x, cfg, positions=positions, cache=lc,
-                           index=index, block_tables=block_tables,
-                           row_len=row_len, build_cache=mode == "prefill",
-                           cache_len=cache_len, ring=ring)
+        x, c, a = apply_layer(layer, x, cfg, positions=positions, cache=lc,
+                              index=index, block_tables=block_tables,
+                              row_len=row_len, build_cache=mode == "prefill",
+                              cache_len=cache_len, ring=ring)
+        aux = aux + a
         if c is not None:
             outs.append(c)
     if not outs:
-        return x, None
+        return x, None, aux
     return x, {n: torch.stack([quant.raw(c[n]) for c in outs]).view(
-        outs[0][n].dtype) for n in outs[0]}
+        outs[0][n].dtype) for n in outs[0]}, aux
 
 
 def stack_paged_cache_spec(cfg, num_blocks: int, block_size: int, dtype):

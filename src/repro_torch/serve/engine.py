@@ -29,10 +29,18 @@ decodes the state in bursts (a group holds only prompts of one length,
 so no padding enters a state); :class:`ServeEngine` prefills the
 rectangular batch and advances the state in lockstep.
 
+Multi-turn sessions (``submit(session=...)``) pin each finished turn's
+full context in the pool through the prefix cache, so the next turn
+prefix-hits it; :meth:`ContinuousServeEngine.close_session` releases the
+pin.  n-way CoW fan-out (``submit(n_samples=n)``) rides the unified
+step's chunk sampling (:mod:`repro_torch.serve.step`): this engine
+refuses it loudly, and :class:`ServeEngine` serves one rectangular
+batch with no such request option.
+
 Not ported (raise or are absent): the mesh and its trace replay, the
-two-deep ``overlap`` pipeline, sessions, CoW fan-out and the prefix
-export/import of the JAX engine.  ``flush_every`` streams the tracer's
-records to ``flush_base`` segments mid-run, as in the JAX engine.
+two-deep ``overlap`` pipeline and the prefix export/import of the JAX
+engine.  ``flush_every`` streams the tracer's records to ``flush_base``
+segments mid-run, as in the JAX engine.
 
 Device state lives in torch tensors on ``device``: the pool leaves
 ``{"k", "v"}`` [layers, NB, bs, Hkv, D] — with ``cfg.kv_dtype`` int8/fp8,
@@ -56,7 +64,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import events as ev
 from repro_torch.core import quant
-from repro_torch.core.sampling import sample_logits
+from repro_torch.core.sampling import fork_seed, sample_logits
 from repro_torch.kernels.attention import dispatch as kdispatch
 from repro_torch.models import cache_utils
 from repro_torch.models.model import DecoderLM, build_model, resolve_device
@@ -74,6 +82,11 @@ class ContinuousServeEngine:
     (its ``kv_dtype`` and ``kernel_mode`` may differ from the model's
     own); None builds a seeded random one there.  ``device`` defaults to CUDA and raises when CUDA is
     absent — CPU runs pass ``device="cpu"``."""
+
+    # n-way CoW fan-out needs the chunk-sampling path that forks sibling
+    # rows off a completing prompt: only the unified step has it (and turns
+    # this on for chunkable configs); this engine refuses fan-out loudly
+    supports_fork = False
 
     def __init__(self, cfg: ModelConfig, model: DecoderLM | None = None, *,
                  device="cuda", num_slots: int, max_len: int,
@@ -170,6 +183,8 @@ class ContinuousServeEngine:
         self._req_hashes: dict[int, list[int]] = {}
         self._chain_memo: dict[int, tuple[int, list[int]]] = {}
         self._preempted: list[Request] = []  # requeue deferred past drain
+        # session id -> {"context", "blocks"}: the pinned context
+        self._sessions: dict[str, dict] = {}
         # copy-on-write transfers (src, dst) to apply before the next write
         self._cow_pairs: list[tuple[int, int]] = []
         self._dispatches = 0  # dispatch counter (seeds the sampling stream)
@@ -195,14 +210,18 @@ class ContinuousServeEngine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _generator(self, salt: int = 0) -> torch.Generator | None:
+    def _generator(self, salt: int = 0, fork: int = 0
+                   ) -> torch.Generator | None:
         """Sampling stream of the current dispatch (None when greedy: argmax
         consumes no randomness).  Seeded from (engine seed, dispatch,
-        salt) so a run is reproducible per seed."""
+        salt) so a run is reproducible per seed; ``fork`` i > 0 derives
+        sibling i's stream of an n-way fan from it (:func:`fork_seed`:
+        fork 0 is the stream itself)."""
         if self.temperature <= 0.0:
             return None
         g = torch.Generator(device=self.device)
-        g.manual_seed(hash((self.seed, self._dispatches, salt)) & (2**62 - 1))
+        g.manual_seed(fork_seed(
+            hash((self.seed, self._dispatches, salt)) & (2**62 - 1), fork))
         return g
 
     def _note_kernel(self, variant: str):
@@ -393,11 +412,12 @@ class ContinuousServeEngine:
     def submit(self, prompt, max_new_tokens: int, *, extras: dict | None = None,
                arrival_ns: int | None = None, n_samples: int = 1,
                session: str | None = None) -> Request:
-        if n_samples > 1:
-            raise NotImplementedError(
-                "n_samples > 1 (CoW fan-out) is not ported yet")
-        if session is not None:
-            raise NotImplementedError("sessions are not ported yet")
+        """Queue one request; every refusal comes before it is queued.
+        ``n_samples > 1`` fans the prompt into n decode streams after one
+        prefill (engines with :attr:`supports_fork` only); ``session``
+        makes it a turn of a conversation whose context stays pinned in
+        the pool (needs the prefix cache; a later turn's prompt must
+        extend the stored context; not with fan-out)."""
         if extras:
             raise NotImplementedError("request extras belong to vlm/encdec "
                                       "families, which are not ported")
@@ -410,15 +430,82 @@ class ContinuousServeEngine:
             raise ValueError(
                 f"prompt {plen} + {max_new_tokens} new tokens needs cache "
                 f"capacity {need} > {self.capacity}")
-        req = self.queue.submit(prompt, max_new_tokens, arrival_ns=arrival_ns)
+        if n_samples > 1:
+            if not self.supports_fork:
+                raise ValueError(
+                    f"n_samples={n_samples} needs CoW forking, which "
+                    f"{type(self).__name__} does not support for "
+                    f"family={self.cfg.family!r} (unified engine + chunkable "
+                    f"config only)")
+            if session is not None:
+                raise ValueError("n_samples > 1 and session are mutually "
+                                 "exclusive (a session persists ONE stream)")
+        if session is not None:
+            if not self.prefix_cache:
+                raise ValueError(
+                    "sessions persist context through the prefix cache; "
+                    "enable prefix_cache (fully-paged model) to use session "
+                    "ids")
+            held = self._sessions.get(session)
+            if held is not None:
+                ctx = held["context"]
+                p = np.asarray(prompt, np.int32)
+                if len(p) <= len(ctx) or not np.array_equal(p[:len(ctx)], ctx):
+                    raise ValueError(
+                        f"session {session!r}: the new prompt must extend the "
+                        f"stored {len(ctx)}-token context (turn k+1 = full "
+                        f"conversation so far + new tokens)")
+        req = self.queue.submit(prompt, max_new_tokens, arrival_ns=arrival_ns,
+                                n_samples=n_samples, session=session)
         if self.tracer is not None:
             self.tracer.emit(ev.EV_QUEUE_DEPTH, len(self.queue))
         return req
+
+    # ------------------------------------------------------------------
+    # multi-turn sessions: the full context stays pinned across requests
+    # ------------------------------------------------------------------
+    def _session_pin(self, req: Request):
+        """At a session turn's retirement, publish and pin its context.
+
+        The context in the pool is ``prompt ++ tokens[:-1]`` (the last
+        sampled token's K/V is never written); every FULL block of it is
+        registered under the chained hash and takes one more reference,
+        so the conversation survives eviction until the next turn claims
+        it or the session closes.  The previous turn's pin (a prefix of
+        this one) is released after the new one is taken, so the context
+        never drops to zero references in between."""
+        sid = req.session
+        context = np.concatenate(
+            [req.prompt, np.asarray(req.tokens, np.int32)])
+        written = len(context) - 1  # the last token's K/V is not pooled
+        nfull = written // self.block_size
+        blocks = self._slot_blocks[req.slot][:nfull]
+        hashes = self.pool.hash_chain(context[:nfull * self.block_size])
+        for bid, h in zip(blocks, hashes):
+            self.pool.register(bid, h)
+        self.pool.incref(blocks)  # the session's pin
+        prev = self._sessions.get(sid)
+        self._sessions[sid] = {"context": context, "blocks": list(blocks)}
+        if prev is not None:
+            self.pool.free(prev["blocks"])  # hand over turn k's pin
+
+    def close_session(self, session: str) -> int:
+        """Release a session's pin: its blocks drop to the prefix cache
+        (CACHED, evictable; a re-opened conversation may still hit them).
+        Returns the number of pinned blocks released; an unknown id is a
+        no-op 0."""
+        held = self._sessions.pop(session, None)
+        if held is None:
+            return 0
+        self.pool.free(held["blocks"])
+        return len(held["blocks"])
 
     def _finish(self, req: Request):
         req.t_done_ns = _now_ns()
         self._active[req.slot] = False
         self._active_dirty = True
+        if req.session is not None and self.prefix_cache:
+            self._session_pin(req)  # before the slot's refs drop
         self._release_blocks(req.slot)
         if self.tracer is not None:
             self.tracer.emit(ev.EV_REQ_TTFT_US, max(req.ttft_ns() // 1000, 0))
@@ -693,7 +780,9 @@ class ContinuousServeEngine:
             out.update(blocks_free=self.pool.num_free(),
                        blocks_cached=self.pool.num_cached(),
                        evictions=self.pool.stats["evictions"],
-                       hit_blocks=self.pool.stats["hit_blocks"])
+                       hit_blocks=self.pool.stats["hit_blocks"],
+                       forks=self.pool.stats["forks"],
+                       cow_copies=self.pool.stats["cow_copies"])
         return out
 
 

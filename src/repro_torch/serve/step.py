@@ -46,10 +46,27 @@ next drafts need its tokens), and ``EV_SPEC_DRAFTED`` /
 ``EV_SPEC_ACCEPTED`` / ``EV_SPEC_K`` are emitted per dispatch.
 ``spec_adaptive`` walks ``K`` with an EMA of the acceptance rate.
 
-Not ported yet (raise ``NotImplementedError``): n-way CoW fan-out
-(``n_samples > 1``), sessions and beam search.  Per-iteration
-``EV_STEP_BUDGET`` / ``EV_CHUNK_TOKENS`` / ``EV_DECODE_TOKENS`` counters
-go to the ``tracer`` when one is given.
+**n-way forks** (``submit(n_samples=n)``): the prompt prefills ONCE;
+when its last chunk samples, the dispatch also samples a fan of first
+tokens, one column per fork (column 0 is the chunk sample itself, so
+fork 0 equals an unforked request; sibling i draws from its own
+generator, :func:`repro_torch.core.sampling.fork_seed`).  Each sibling
+adopted into a free slot aliases every parent block through
+``BlockPool.fork`` (zero copies; the shared partial tail is copied on
+write at its first decode write, in ``_ensure_blocks`` and in the spec
+planner alike) and its registers are seeded on the device from the fan
+still in flight.  Siblings that find no free slot requeue at the front
+and re-admit through the prefix cache.
+
+**Beam search** (:meth:`UnifiedServeEngine.beam_search`) runs on an idle
+engine on the same mechanism: the prompt prefills once as one span row
+into beam 0's blocks, the other beams alias them, every step is one
+paged decode over the beam rows, and each host-side prune reseats a beam
+by ``pool.fork`` of its source (``EV_FORK``, value source + 1) before
+the old rows are freed; the write frontier is copied on write.
+
+Per-iteration ``EV_STEP_BUDGET`` / ``EV_CHUNK_TOKENS`` /
+``EV_DECODE_TOKENS`` counters go to the ``tracer`` when one is given.
 """
 from __future__ import annotations
 
@@ -62,7 +79,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import events as ev
-from repro_torch.core.sampling import sample_logits, spec_accept
+from repro_torch.core.sampling import sample_logits, spec_accept, top_k
 from repro_torch.serve.block_pool import NULL_BLOCK
 from repro_torch.serve.engine import EV_TOKENS_DECODED, ContinuousServeEngine
 from repro_torch.serve.queue import Request, _now_ns
@@ -77,13 +94,24 @@ class ChunkPlan:
     length: int  # valid tokens (<= chunk_size)
     tokens: np.ndarray  # [length] int32
     sample: bool  # True when this chunk completes the prompt
+    # fork children adopted into free slots when this chunk completed a
+    # fan-out parent's prompt; each reads its first token from its own
+    # column of the dispatch's fan
+    forked: list[Request] = dataclasses.field(default_factory=list)
+
+    def fans(self) -> bool:
+        """This chunk completes the ONE prefill of an n-way fan-out (a
+        preemption-resumed parent keeps its forks: no second fan)."""
+        r = self.req
+        return self.sample and r.n_samples > 1 and r.fork_of < 0 \
+            and not r.forks
 
 
 @dataclasses.dataclass
 class _Inflight:
     """A dispatch whose tokens are not fetched yet."""
     toks: torch.Tensor  # [steps, num_slots] decode tokens (device)
-    ck_tok: torch.Tensor | None  # [chunk_rows] first tokens (device)
+    ck_fan: torch.Tensor | None  # [chunk_rows, F] first-token fan (device)
     pairs: list
     chunks: list
 
@@ -121,6 +149,8 @@ class UnifiedServeEngine(ContinuousServeEngine):
             for code in (ev.EV_STEP_BUDGET, ev.EV_CHUNK_TOKENS,
                          ev.EV_DECODE_TOKENS):
                 self.tracer.register(code, ev.SERVE_CTR_LABELS[code])
+            self.tracer.register(
+                ev.EV_FORK, "CoW fork: child stream minted (parent rid+1)")
         # speculative decoding: draft/verify spans through the span path
         self.spec = spec
         self.spec_k_max = max(1, int(spec_k))
@@ -139,6 +169,12 @@ class UnifiedServeEngine(ContinuousServeEngine):
                              ev.EV_SPEC_K):
                     self.tracer.register(code, ev.SERVE_CTR_LABELS[code])
 
+    @property
+    def supports_fork(self) -> bool:
+        # n-way fan-out rides the chunk-sampling fork path: chunkable
+        # configs only; the others keep the base class's loud refusal
+        return self.chunkable
+
     # ------------------------------------------------------------------
     # one dispatch: decode sub-batch + chunk sub-batch
     # ------------------------------------------------------------------
@@ -152,7 +188,7 @@ class UnifiedServeEngine(ContinuousServeEngine):
         disjoint from every decode write) and sample only where a chunk
         completes its prompt; each sampled first token and its decode
         position go straight into the slot registers.
-        Returns (tok, idx, toks [steps, S], ck_tok [C] or None)."""
+        Returns (tok, idx, toks [steps, S], ck_fan [C, F] or None)."""
         gen = self._generator()
         bt = (tables.masked_fill(~active[:, None], NULL_BLOCK)
               if self._has_paged else None)
@@ -166,9 +202,9 @@ class UnifiedServeEngine(ContinuousServeEngine):
         ck_tokens, ck_start, ck_len, ck_slot = self._pack_chunks(chunks)
         logits = self.model.span_step(self._caches, ck_tokens, ck_start,
                                       ck_len, tables[ck_slot])
-        tok, idx, ck_tok = self._fold_chunk_rows(logits, chunks, ck_len,
+        tok, idx, ck_fan = self._fold_chunk_rows(logits, chunks, ck_len,
                                                  tok, idx)
-        return tok, idx, toks, ck_tok
+        return tok, idx, toks, ck_fan
 
     def _pack_chunks(self, chunks: list[ChunkPlan]):
         """The chunk plans as fixed-shape device rows: tokens
@@ -188,12 +224,15 @@ class UnifiedServeEngine(ContinuousServeEngine):
         """Sample each chunk row's last valid position, and fold the first
         token and decode position of every row that completes its prompt
         into the slot registers.  Shared by the unified and spec steps.
-        Returns (tok, idx, ck_tok [chunk_rows])."""
+        Returns (tok, idx, ck_fan [chunk_rows, F]): column 0 is the
+        chunk sample; where a row completes a fan-out prompt, column i < F
+        is the first token of fork i (:meth:`_fan`)."""
         rows = self.chunk_rows
         last = logits[torch.arange(rows, device=self.device),
                       (ck_len.long() - 1).clamp(min=0)]
         ck_tok = sample_logits(last, self._generator(salt=1), self.temperature,
                                self.cfg.vocab_size, self.top_k, self.top_p)
+        ck_fan = self._fan(last, ck_tok, chunks)
         done = [i for i, c in enumerate(chunks) if c.sample]
         if done:
             sel = self._dev(np.asarray(done, np.int64))
@@ -201,7 +240,26 @@ class UnifiedServeEngine(ContinuousServeEngine):
             pos = [chunks[i].start + chunks[i].length for i in done]
             tok = tok.index_copy(0, slots, ck_tok[sel])
             idx = idx.index_copy(0, slots, self._dev(np.asarray(pos, np.int32)))
-        return tok, idx, ck_tok
+        return tok, idx, ck_fan
+
+    def _fan(self, last, ck_tok, chunks):
+        """The sibling fan of a dispatch: [chunk_rows, F] first tokens.
+        Column 0 is ``ck_tok`` itself (the parent's stream is untouched);
+        column i draws from fork i's generator, a pure function of (seed,
+        dispatch, i); greedy columns all equal the argmax.  F is 1 unless
+        a chunk completes a fan-out prompt; then it covers every fork a
+        free slot can adopt (at most ``num_slots - 1`` siblings), each
+        column independent of how many are drawn."""
+        n = max((min(c.req.n_samples, self.num_slots) for c in chunks
+                 if c.fans()), default=1)
+        if n == 1 or self.temperature <= 0.0:
+            return ck_tok[:, None].expand(-1, n)
+        fan = [ck_tok]
+        for i in range(1, n):
+            fan.append(sample_logits(last, self._generator(salt=1, fork=i),
+                                     self.temperature, self.cfg.vocab_size,
+                                     self.top_k, self.top_p))
+        return torch.stack(fan, dim=1)
 
     # ------------------------------------------------------------------
     # one speculative dispatch: verify spans + chunk rows in one span pass
@@ -216,8 +274,8 @@ class UnifiedServeEngine(ContinuousServeEngine):
         rows ride the same batch, padded to the common width.
         :func:`spec_accept` commits each slot's accepted prefix plus one
         token into the registers; completed prompts sample their first
-        token.  Returns (tok, idx, out_toks [S, K+1], n_acc [S], ck_tok
-        [chunk_rows] or None)."""
+        token.  Returns (tok, idx, out_toks [S, K+1], n_acc [S], ck_fan
+        [chunk_rows, F] or None)."""
         kmax = self.spec_k_max
         width = max(kmax + 1, self.chunk_size) if chunks else kmax + 1
         row_tokens = torch.nn.functional.pad(
@@ -244,11 +302,11 @@ class UnifiedServeEngine(ContinuousServeEngine):
         final = out_toks.gather(1, n_acc.long()[:, None])[:, 0]
         tok = torch.where(spec_active, final, tok)
         idx = torch.where(spec_active, idx + n_acc + 1, idx)
-        ck_tok = None
+        ck_fan = None
         if chunks:
-            tok, idx, ck_tok = self._fold_chunk_rows(
+            tok, idx, ck_fan = self._fold_chunk_rows(
                 logits[s:, :self.chunk_size], chunks, ck_len, tok, idx)
-        return tok, idx, out_toks, n_acc, ck_tok
+        return tok, idx, out_toks, n_acc, ck_fan
 
     # ------------------------------------------------------------------
     # admission policy: blocks for the FIRST chunk only (JIT per chunk)
@@ -394,7 +452,7 @@ class UnifiedServeEngine(ContinuousServeEngine):
         with (tr.phase(ev.PHASE_DECODE) if tr else contextlib.nullcontext()), \
                 (tr.user_function(name="unified_step") if tr
                  else contextlib.nullcontext()):
-            self._tok, self._idx, toks, ck_tok = self._unified_impl(
+            self._tok, self._idx, toks, ck_fan = self._unified_impl(
                 self._tok, self._idx, self._active_dev, self._tables_dev,
                 chunks, steps)
         self._dispatches += 1
@@ -411,7 +469,7 @@ class UnifiedServeEngine(ContinuousServeEngine):
             if req.scheduled >= req.max_new_tokens:
                 self._active[slot] = False
                 self._active_dirty = True
-        n_chunk = self._advance_chunks(chunks, t_dispatch)
+        n_chunk = self._advance_chunks(chunks, t_dispatch, ck_fan)
         # whole-prompt admissions (not chunkable) ride this dispatch's
         # triple: the documented bypass of max_step_tokens
         n_chunk += self._whole_tokens
@@ -420,13 +478,17 @@ class UnifiedServeEngine(ContinuousServeEngine):
             tr.emit(ev.EV_STEP_BUDGET, len(pairs) + n_chunk)
             tr.emit(ev.EV_CHUNK_TOKENS, n_chunk)
             tr.emit(ev.EV_DECODE_TOKENS, len(pairs))
-        return _Inflight(toks, ck_tok, pairs, chunks)
+        return _Inflight(toks, ck_fan, pairs, chunks)
 
-    def _advance_chunks(self, chunks: list[ChunkPlan], t_dispatch) -> int:
+    def _advance_chunks(self, chunks: list[ChunkPlan], t_dispatch,
+                        ck_fan=None) -> int:
         """Dispatch-side chunk bookkeeping (cursor advance, prompt-block
-        registration at completion); returns the chunk token count."""
+        registration at completion, fan-out forking); returns the chunk
+        token count.  ``ck_fan`` is the dispatch's sibling fan, on the
+        device (unified step, not fetched yet) or on the host (spec
+        lane): the fork hook seeds child registers from it."""
         n_chunk = 0
-        for c in chunks:
+        for row, c in enumerate(chunks):
             n_chunk += c.length
             slot, req = c.slot, c.req
             self._progress[slot] += c.length
@@ -445,30 +507,91 @@ class UnifiedServeEngine(ContinuousServeEngine):
                     for j, h in enumerate(hashes[:req.prompt_len
                                                  // self.block_size]):
                         self.pool.register(self._slot_blocks[slot][j], h)
+                if c.fans():
+                    self._fork_fanout(row, c, ck_fan, t_dispatch)
         return n_chunk
+
+    def _fork_fanout(self, row: int, c: ChunkPlan, ck_fan, t_dispatch):
+        """Fan a completing fan-out prompt into its sibling decode streams.
+
+        A child adopted into a free slot costs no block copy: its table
+        aliases every parent block, the partial tail included, via
+        ``pool.fork`` (one more reference each), and the shared tail is
+        copied at the child's first decode write.  Its registers are
+        seeded from the dispatch's fan (column ``fork_index``) without a
+        host sync, at the parent's first decode position.  Children that
+        find no free slot requeue at the FRONT, in fork order, and
+        re-admit through the prompt blocks the parent just registered."""
+        slot, req = c.slot, c.req
+        tr = self.tracer
+        kids = self.queue.fork_children(req)
+        start = int(self._slot_start[slot])  # first decode write position
+        overflow: list[Request] = []
+        for kid in kids:
+            if tr is not None:
+                tr.emit(ev.EV_FORK, req.rid + 1)
+            target = next((s for s in range(self.num_slots)
+                           if self.scheduler.slots[s] is None), None)
+            if target is None:
+                overflow.append(kid)
+                continue
+            self.scheduler.adopt(target, kid)
+            if self.spec is not None:
+                self.spec.reset_slot(target)
+            self._slot_blocks[target] = self.pool.fork(self._slot_blocks[slot])
+            self._tables[target] = self._tables[slot]
+            self._tables_dirty = True
+            self._slot_start[target] = start
+            self._slot_sched0[target] = 0
+            self._progress[target] = self._target[target] = start
+            self._prefilling[target] = False
+            kid.scheduled = 1  # the fan token, in flight right now
+            kid.t_admit_ns = t_dispatch
+            hit = req.prompt_len // self.block_size * self.block_size
+            kid.prefix_hit_tokens = hit  # full blocks served by aliasing
+            self.stats["prefix_hit_tokens"] += hit
+            if tr is not None:
+                tr.emit(ev.EV_PREFIX_HIT_TOKENS, hit)
+            if kid.max_new_tokens > 1:
+                self._active[target] = True
+                self._active_dirty = True
+            first = ck_fan[row, kid.fork_index]
+            self._tok[target] = first if torch.is_tensor(first) else int(first)
+            self._idx[target] = start
+            c.forked.append(kid)
+        for kid in reversed(overflow):
+            self.queue.requeue(kid)  # front, ascending fork order
+        if overflow and tr is not None:
+            tr.emit(ev.EV_QUEUE_DEPTH, len(self.queue))
 
     def _emit_chunk_tokens(self, chunks: list[ChunkPlan], ck) -> None:
         """Fetch-side chunk bookkeeping: append the first sampled token of
-        each completed prompt; retire single-token requests."""
+        each completed prompt and of every fork child seated at dispatch;
+        retire single-token requests.  The row owner reads column 0 (the
+        value its register got), even an overflow child re-admitted on
+        the normal path: the fan covers only siblings adopted at their
+        parent's dispatch."""
         for i, c in enumerate(chunks):
             if not c.sample:
                 continue
-            req = c.req
-            if req.t_first_ns < 0:
-                req.t_first_ns = _now_ns()  # resumes keep their TTFT
-            req.tokens.append(int(ck[i]))
-            self.stats["tokens_decoded"] += 1
-            if self.tracer is not None:
-                self.tracer.emit(ev.EV_TOKENS_TOTAL, self.stats["tokens_decoded"])
-            if len(req.tokens) >= req.max_new_tokens \
-                    and self.scheduler.slots[req.slot] is req:
-                self._finish(req)
+            for req in [c.req] + c.forked:
+                if req.t_first_ns < 0:
+                    req.t_first_ns = _now_ns()  # resumes keep their TTFT
+                col = 0 if req is c.req else req.fork_index
+                req.tokens.append(int(ck[i, col]))
+                self.stats["tokens_decoded"] += 1
+                if self.tracer is not None:
+                    self.tracer.emit(ev.EV_TOKENS_TOTAL,
+                                     self.stats["tokens_decoded"])
+                if len(req.tokens) >= req.max_new_tokens \
+                        and self.scheduler.slots[req.slot] is req:
+                    self._finish(req)
 
     def _process_unified(self, d: _Inflight):
         """Fetch one dispatch's tokens (the single host sync, overlapped
         with the next dispatch's device work) and run retirement."""
         toks = d.toks.cpu().numpy()
-        ck = None if d.ck_tok is None else d.ck_tok.cpu().numpy()
+        ck = None if d.ck_fan is None else d.ck_fan.cpu().numpy()
         self._process_tokens(toks, d.pairs)
         self._emit_chunk_tokens(d.chunks, ck)
 
@@ -707,17 +830,17 @@ class UnifiedServeEngine(ContinuousServeEngine):
                       else contextlib.nullcontext()), \
                         (tr.user_function(name="spec_step") if tr
                          else contextlib.nullcontext()):
-                    self._tok, self._idx, out_toks, n_acc, ck_tok = \
+                    self._tok, self._idx, out_toks, n_acc, ck_fan = \
                         self._spec_impl(self._tok, self._idx, self._active_dev,
                                         self._tables_dev, drafts, draft_q,
                                         self._dev(spec_len), chunks)
                     out = out_toks.cpu().numpy()  # the dispatch's one sync
                     nacc = n_acc.cpu().numpy()
-                    ck = None if ck_tok is None else ck_tok.cpu().numpy()
+                    ck = None if ck_fan is None else ck_fan.cpu().numpy()
                 self._dispatches += 1
                 self._note_kernel("paged_span")  # verify rides the span
                 self.stats["host_syncs"] += 1
-                n_chunk = self._advance_chunks(chunks, t_dispatch)
+                n_chunk = self._advance_chunks(chunks, t_dispatch, ck)
                 drafted, accepted = self._commit_spec(pairs, spec_len, out,
                                                       nacc)
                 self._emit_chunk_tokens(chunks, ck)
@@ -784,5 +907,150 @@ class UnifiedServeEngine(ContinuousServeEngine):
             elif self._accept_ema < 0.35:
                 self._spec_k = max(1, self._spec_k - 1)
 
-    def beam_search(self, prompt, num_tokens: int, *, width: int = 4):
-        raise NotImplementedError("beam search is not ported yet")
+    # ------------------------------------------------------------------
+    # beam search: fork + per-step score/prune on the same CoW mechanism
+    # ------------------------------------------------------------------
+    def _beam_prefill(self, prompt, table, width: int):
+        """The prompt [L] as ONE span row writing into the beam's block
+        table [W] -> top-``width`` first-token log-probs and their ids."""
+        length = prompt.shape[0]
+        logits = self.model.span_step(
+            self._caches, prompt[None],
+            torch.zeros((1,), dtype=torch.int32, device=self.device),
+            torch.full((1,), length, dtype=torch.int32, device=self.device),
+            table[None])
+        return top_k(torch.log_softmax(logits[0, length - 1].float(), -1),
+                     width)
+
+    def _beam_step(self, tok, idx, active, tables, width: int):
+        """One beam decode step: the serve loop's paged decode over every
+        slot row (inactive rows NULL-masked), then each beam's
+        top-``width`` log-prob candidates [S, width] for the host prune.
+        log_softmax keeps the argmax, so width 1 is greedy decode."""
+        bt = tables.masked_fill(~active[:, None], NULL_BLOCK)
+        logits = self.model.decode_step(self._caches, tok, idx, bt)
+        return top_k(torch.log_softmax(logits.float(), -1), width)
+
+    def beam_search(self, prompt, num_tokens: int, *, width: int = 4
+                    ) -> list[tuple[np.ndarray, float]]:
+        """Beam-search ``num_tokens`` continuations of ``prompt``; returns
+        [(tokens, cumulative log-prob)] best-first, ``width`` entries.
+
+        Beams ARE forks: the prompt prefills ONCE into beam 0's blocks,
+        beams 1..W-1 alias them via ``pool.fork``, and every prune that
+        reseats beam b onto source s is another fork (``EV_FORK``, value
+        s + 1), taken before b's old rows are freed.  The only copies are
+        CoW of the shared write-frontier block.  Runs on an idle engine
+        (the beams borrow the slot rows); the candidates of a step are
+        ranked by a stable argsort of the [W, W] summed log-probs."""
+        if not self.chunkable:
+            raise ValueError(
+                "beam_search needs the fully-paged span path (dense/moe "
+                f"families); {self.cfg.family!r} cannot run it")
+        if not 1 <= width <= self.num_slots:
+            raise ValueError(f"width must be in [1, {self.num_slots}]")
+        if self.queue or self.scheduler.any_active():
+            raise RuntimeError("beam_search needs an idle engine "
+                               "(no queued or active requests)")
+        prompt = np.asarray(prompt, np.int32)
+        plen = int(prompt.shape[0])
+        if plen + num_tokens > self.capacity:
+            raise ValueError(
+                f"prompt {plen} + {num_tokens} beam tokens needs cache "
+                f"capacity {plen + num_tokens} > {self.capacity}")
+        t_beam0 = time.perf_counter()
+        pool, bs, tr, w = self.pool, self.block_size, self.tracer, width
+        # beam 0 owns the prompt blocks; 1..W-1 alias them (zero copies)
+        blocks: list[list[int]] = [pool.alloc(pool.blocks_for(plen))]
+        tables = np.full((self.num_slots, self.blocks_per_slot), NULL_BLOCK,
+                         np.int32)
+        tables[0, :len(blocks[0])] = blocks[0]
+        for _ in range(1, w):
+            blocks.append(pool.fork(blocks[0]))
+            tables[len(blocks) - 1] = tables[0]
+            if tr is not None:
+                tr.emit(ev.EV_FORK, 0 + 1)
+        self.stats["prefills"] += 1
+        self.stats["prefill_tokens"] += plen
+        with torch.inference_mode():
+            with (tr.phase(ev.PHASE_PREFILL) if tr
+                  else contextlib.nullcontext()), \
+                    (tr.user_function(name="beam_prefill") if tr
+                     else contextlib.nullcontext()):
+                val, ids = self._beam_prefill(self._dev(prompt),
+                                              self._dev(tables[0]), w)
+            val = val.cpu().numpy().astype(np.float64)
+            ids = ids.cpu().numpy()
+            self._note_kernel("paged_span")
+            self.stats["host_syncs"] += 1
+            scores = val.copy()  # [w] cumulative log-probs
+            seqs = [[int(t)] for t in ids]
+            tok = np.zeros((self.num_slots,), np.int32)
+            idx = np.zeros((self.num_slots,), np.int32)
+            active = np.zeros((self.num_slots,), bool)
+            tok[:w], idx[:w], active[:w] = ids, plen, True
+            active_dev = self._dev(active)
+            # num_tokens - 1 decode steps: the last token's K/V is never
+            # written, so its position needs no block and no CoW
+            for step in range(1, num_tokens):
+                # fund and exclusively own each beam's write block: the
+                # decode writes tok's K/V at position plen + step - 1
+                wblk = (plen + step - 1) // bs
+                for b in range(w):
+                    if wblk >= len(blocks[b]):
+                        fresh = pool.alloc(1)
+                        tables[b, len(blocks[b])] = fresh[0]
+                        blocks[b].extend(fresh)
+                    elif pool.ref(blocks[b][wblk]) > 1:
+                        old = blocks[b][wblk]
+                        fresh, copied = pool.cow(old)
+                        if copied:
+                            blocks[b][wblk] = fresh
+                            tables[b, wblk] = fresh
+                            self._cow_pairs.append((old, fresh))
+                self._flush_cow()
+                self.stats["peak_blocks"] = max(self.stats["peak_blocks"],
+                                                pool.num_active())
+                self.stats["peak_shared"] = max(self.stats["peak_shared"],
+                                                pool.num_shared())
+                with (tr.phase(ev.PHASE_DECODE) if tr
+                      else contextlib.nullcontext()), \
+                        (tr.user_function(name="beam_step") if tr
+                         else contextlib.nullcontext()):
+                    val, ids = self._beam_step(
+                        self._dev(tok), self._dev(idx), active_dev,
+                        self._dev(tables), w)
+                val = val.cpu().numpy().astype(np.float64)[:w]
+                ids = ids.cpu().numpy()[:w]
+                self._note_kernel("paged_decode")
+                self.stats["host_syncs"] += 1
+                total = scores[:, None] + val  # [w, w] candidate scores
+                flat = np.argsort(-total, axis=None, kind="stable")[:w]
+                src, pick = flat // w, flat % w
+                # reseat pruned beams: alias the surviving source's blocks
+                # BEFORE releasing the old rows, so a row that is both
+                # replaced and someone's source never drops to ref 0
+                old_blocks = [blocks[b] for b in range(w)]
+                old_tables = tables[:w].copy()
+                for b in range(w):
+                    s = int(src[b])
+                    if s != b:
+                        blocks[b] = pool.fork(old_blocks[s])
+                        tables[b] = old_tables[s]
+                        if tr is not None:
+                            tr.emit(ev.EV_FORK, s + 1)
+                for b in range(w):
+                    if int(src[b]) != b:
+                        pool.free(old_blocks[b])
+                seqs = [seqs[int(s)] + [int(ids[int(s), int(p)])]
+                        for s, p in zip(src, pick)]
+                scores = total.reshape(-1)[flat]
+                tok[:w] = [ids[int(s), int(p)] for s, p in zip(src, pick)]
+                idx[:w] = plen + step
+        for b in range(w):
+            pool.free(blocks[b])  # unhashed: straight back to FREE
+        self.stats["tokens_decoded"] += w * num_tokens
+        self.stats["seconds"] += time.perf_counter() - t_beam0
+        order = np.argsort(-scores, kind="stable")
+        return [(np.asarray(seqs[int(r)], np.int32), float(scores[int(r)]))
+                for r in order]

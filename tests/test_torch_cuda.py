@@ -3,7 +3,9 @@ int8/fp8 pools) and the flash kernel against their plain torch versions,
 the paged decode and span bodies and the flash kernel against the float64
 attention oracle (span at GQA groups 1, 4, 8 and 12; decode at 1, 4, 8, 12
 and 16, a 2560-token slot, 64 slots and position 0, with the plan's key
-splits and one forced split),
+splits and one forced split; the beam-prefill span row of Q 512 at G 4
+and 1), the moe block on the card against the CPU at bf16, an int8
+fork's CoW copy of codes and scales,
 the SSD scan kernel and its plain version against the float64 oracle
 (the bf16 tensor-core body also at 2560 tokens, S 1 and 17, ragged
 tails, the narrow P tiles, padded N and strided views), and the engines'
@@ -160,6 +162,107 @@ def test_span_tensor_core_body_holds_to_f64_oracle_at_group(
     assert attn_ref.check_ratio(out, one, *attn_ref.SPLIT_CHECK,
                                 valid=valid) <= 1.0
     assert (out[ln == 0] == 0).all() and (one[ln == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(32, 8), (32, 32)], ids=["G4", "G1"])
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
+def test_span_body_holds_beam_prefill_row_to_f64_oracle(cuda_device, heads,
+                                                        kv_dtype):
+    """Beam search prefills its prompt as ONE span row: Q 512 at start 0
+    (2048 folded rows at granite's G 4, 512 at G 1), bf16 q on the tensor
+    cores, the plan's splits and one forced split, held to the float64
+    oracle."""
+    hq, hkv = heads
+    q, kp, vp, bt, st, ln = _case(cuda_device, torch.bfloat16, b=1, q_len=512,
+                                  starts=[0], lens=[512], hkv=hkv, g=hq // hkv)
+    sc = {}
+    if kv_dtype != "fp16":
+        kp, vp, sc = _quantize_pool(kp, vp, kv_dtype)
+    out = paged.paged_span_fwd(q, kp, vp, bt, st, ln, **sc)
+    one = paged.paged_span_fwd(q, kp, vp, bt, st, ln, splits=1, **sc)
+    want = attn_ref.paged_span_ref(q, kp, vp, bt, st, ln, **sc)
+    valid = attn_ref.span_valid(ln, 512)
+    assert torch.isfinite(out).all()
+    assert attn_ref.check_ratio(out, want, valid=valid) <= 1.0
+    assert attn_ref.check_ratio(one, want, valid=valid) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["einsum", "sort"])
+@pytest.mark.parametrize("cf", [1.25, 0.25])
+def test_moe_block_on_the_card_matches_the_cpu_at_bf16(cuda_device, impl, cf):
+    """The moe block on bf16 weights and activations: the same expert
+    choices and dropped slots on the card as on the CPU (the router runs
+    in float32), and outputs within bf16 rounding (the gate product
+    accumulated and kept in float32 on both: cuBLAS's float32 output on
+    the card, widened operands on the CPU)."""
+    from repro_torch.models import moe
+
+    cfg = reduced(get_config("deepseek-moe-16b"), dtype="bfloat16",
+                  capacity_factor=cf, moe_impl=impl)
+    m_cpu = build_model(cfg, device="cpu", seed=3).layers[0].moe
+    m_gpu = moe.MoE({n: p.to(cuda_device) for n, p in m_cpu.named_parameters()})
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal((4, 64, cfg.d_model))
+                          + rng.standard_normal(cfg.d_model)).astype(
+                              np.float32)).to(torch.bfloat16)
+    xg = x.reshape(1, 256, -1)
+    with torch.inference_mode():
+        _, i_cpu, _ = moe.router(m_cpu, xg, cfg)
+        _, i_gpu, _ = moe.router(m_gpu, xg.to(cuda_device), cfg)
+        y_cpu, a_cpu = moe.moe_block(m_cpu, x, cfg)
+        y_gpu, a_gpu = moe.moe_block(m_gpu, x.to(cuda_device), cfg)
+    assert torch.equal(i_gpu.cpu(), i_cpu)
+    c = moe.capacity(256, cfg)
+    keep = moe.einsum_slots(i_cpu, cfg.num_experts, c)[1]
+    assert not keep.all()  # capacity binds: the drops are compared too
+    assert y_gpu.dtype == torch.bfloat16 and torch.isfinite(y_gpu).all()
+    torch.testing.assert_close(y_gpu.float().cpu(), y_cpu.float(),
+                               atol=TOL[torch.bfloat16], rtol=0)
+    torch.testing.assert_close(a_gpu.cpu(), a_cpu, atol=0, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fork_cow_copy_on_int8_pool_keeps_codes_and_scales(cuda_device):
+    """A copy-on-write block copy of an int8 pool moves the codes and the
+    f32 scales bit for bit; a greedy n=3 fan over that pool (pallas: the
+    quantized kernels) equals the unforked stream."""
+    cfg = reduced(get_config("granite-8b"), kv_dtype="int8",
+                  kernel_mode="pallas")
+    model = build_model(cfg, device=cuda_device, seed=0)
+    eng = UnifiedServeEngine(cfg, model, device=cuda_device, num_slots=4,
+                             max_len=96, chunk_size=16)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    for name, leaf in eng._caches.items():
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen,
+                                     device=cuda_device, dtype=torch.int8))
+        else:
+            leaf.copy_(torch.rand(leaf.shape, generator=gen,
+                                  device=cuda_device))
+    src = eng.pool.alloc(2)
+    eng.pool.fork(src)
+    for b in src:
+        fresh, copied = eng.pool.cow(b)
+        assert copied
+        eng._cow_pairs.append((b, fresh))
+    pairs = list(eng._cow_pairs)
+    eng._flush_cow()
+    assert set(eng._caches) == {"k", "v", "k_scale", "v_scale"}
+    for name, leaf in eng._caches.items():
+        for a, b in pairs:
+            assert torch.equal(leaf[:, a], leaf[:, b]), name
+    eng = UnifiedServeEngine(cfg, model, device=cuda_device, num_slots=4,
+                             max_len=96, chunk_size=16)
+    prompt = np.random.default_rng(2).integers(0, 512, (45,)).astype(np.int32)
+    r0 = eng.submit(prompt, 6)
+    want = eng.run()[r0.rid]
+    rp = eng.submit(prompt, 6, n_samples=3)
+    out = eng.run()
+    for r in [rp] + rp.forks:
+        np.testing.assert_array_equal(out[r.rid], want)
+    assert eng.pool.stats["cow_copies"] > 0
 
 
 @pytest.mark.cuda

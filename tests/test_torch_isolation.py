@@ -1,7 +1,9 @@
 """Torch port isolation: every ``repro_torch`` module imports (the ssm
-model, the SSD scan package and the spec proposers included), and the
-reduced CPU engines serve (the legacy one traced into a ``.prv``; mamba2
-unified and legacy; the n-gram and draft-model spec lanes), in a
+and moe models, the SSD scan package and the spec proposers included),
+and the reduced CPU engines serve (the legacy one traced into a ``.prv``;
+mamba2 unified and legacy; the n-gram and draft-model spec lanes;
+deepseek-moe unified with a fork and a beam search, and legacy with a
+session), in a
 process where ``jax`` and ``repro`` cannot be imported at all; no port
 source names them."""
 from __future__ import annotations
@@ -70,6 +72,16 @@ for kind in ("ngram", "draft:granite-8b"):
                                   device="cpu"))
     req = spec.submit(np.arange(9, dtype=np.int32), 5)
     assert len(spec.run()[req.rid]) == 5 and spec.stats["spec_dispatches"]
+moe = UnifiedServeEngine(reduced(get_config("deepseek-moe-16b"), num_layers=1),
+                         device="cpu", num_slots=2, max_len=32)
+req = moe.submit(np.arange(9, dtype=np.int32), 5, n_samples=2)
+out = moe.run()
+assert len(out) == 2 and all(len(t) == 5 for t in out.values()), out
+assert len(moe.beam_search(np.arange(9, dtype=np.int32), 4, width=2)) == 2
+moe_legacy = ContinuousServeEngine(moe.cfg, moe.model, device="cpu",
+                                   num_slots=1, max_len=32)
+req = moe_legacy.submit(np.arange(9, dtype=np.int32), 5, session="s")
+assert len(moe_legacy.run()[req.rid]) == 5
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print("ok", len(mods))

@@ -167,8 +167,8 @@ def test_engine_guards():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             UnifiedServeEngine(cfg, num_slots=1, max_len=16)
     eng = UnifiedServeEngine(cfg, device="cpu", num_slots=1, max_len=16)
-    with pytest.raises(NotImplementedError, match="fan-out"):
-        eng.submit(np.arange(4), 2, n_samples=2)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        eng.submit(np.arange(4), 2, n_samples=2, session="s")
     with pytest.raises(ValueError, match="capacity"):
         eng.submit(np.arange(12), 8)
     ssm = reduced(get_config("mamba2-370m"), num_layers=1)
@@ -246,10 +246,12 @@ def test_cli_mamba2_other_modes_name_the_next_slice(capsys, mode):
     assert "paged pool" not in out, out
 
 
-@pytest.mark.parametrize("flag", [["--beam", "2"], ["--mp", "2"],
+@pytest.mark.parametrize("flag", [["--beam", "2", "--mode", "static"],
+                                  ["--mp", "2"],
                                   ["--spec", "ngram", "--mode", "static"],
                                   ["--overlap", "on"],
-                                  ["--replicas", "2"], ["--n", "2"],
+                                  ["--replicas", "2"],
+                                  ["--n", "2", "--mode", "continuous"],
                                   ["--flush-every", "2"]])
 def test_cli_rejects_paths_not_ported(flag):
     with pytest.raises(SystemExit):
