@@ -64,7 +64,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    The span bodies at the spec lane's verify rows (four slots of K + 1
    = 5 queries, alone at Q 5 and beside two chunk rows at Q 32; native
    and int8 pools) against their plain versions and the oracle, timed
-   beside SDPA and the bound;
+   beside SDPA and the bound.  Flash and decode at the hybrid's and the
+   vlm's shapes (``family_kernel_phase``): (a) flash Hq 16 / Hkv 1 / D
+   256 under the 2048 window at S 2304 and 2560, (b) flash Hq 16 / Hkv 8
+   / D 128 causal at S 1536, (c) decode G 16 / D 256 under the window at
+   slots 2047 / 2048 / 2300 / 4000 and (d) G 2 / D 128 at 0 / 17 / 1300 /
+   1543 (native and int8 pools, the plan's splits and one), each against
+   its plain version and the oracle, timed beside SDPA and the bound;
 4. full-width granite-8b (36 layers, d_model 4096, bf16, random weights
    from a seed), one model object for both waves:
    a. through ``UnifiedServeEngine(device="cuda")``: 8 requests of
@@ -154,6 +160,32 @@ Phases (each prints its own lines; any failure exits non-zero):
       one profiled window with the moe dispatch ops named;
    n. the same model drop-free (cf 11 >= E / k): each first token of the
       stream within ``MOE_MARGIN`` of ``forward()``'s argmax;
+   o. full-width recurrentgemma-9b (38 layers: 12 x (rec, rec, attn) + 2
+      rec, d_model 4096, MQA 16 / 1 heads of 256, window 2048, bf16,
+      8.579B random weights from a seed; the RG-LRU's scan and step timed
+      first) through the unified engine, bf16 pool, traced: 8 requests,
+      four of 2100-2400 tokens (prefill and decode past the window) and
+      four of 200-512, 32 new tokens, 4 slots, the prefix cache requested
+      and kept off by the family gate: flash and decode launched, no
+      span and no plain call, 12,288 pool bytes a token, budget triples
+      as in (f), first tokens within ``FIRST_TOKEN_TOL`` and every
+      committed token within ``SPEC_ORACLE_MARGIN`` of ``forward()``, the
+      kernel path held to the plain one on one batch (4 x 2112 tokens, 32
+      decode steps), a profiled window with the RG-LRU's ops named;
+   p. the same model through the unified engine on an int8 pool (6,240
+      B/token), the grouped-prefill engine (a B 2 group of two 2304-token
+      prompts, then (o)'s stream) and the fixed-batch engine (4 x 2304
+      tokens over window rings; its decode is the naive one-query path,
+      as in the JAX package), each with (o)'s checks and its token
+      agreement with (o);
+   q. full-width internvl2-2b (24 layers, d_model 2048, 16 / 8 heads of
+      128, 1.892B random weights; 1,024 seeded patch embeddings of width
+      1,024 a request) on (a)'s stream shape through the unified and
+      grouped-prefill engines: flash and decode launched, no plain call,
+      0 prefix hits although the pairs share their text, 98,304 B/token,
+      first and committed tokens against ``forward(tokens, patches)``;
+   r. the same model through the fixed-batch engine (4 x (1,024 patches
+      + 512 tokens));
    (the profiled windows read the profiler's raw device events: busy
    time as the sum of kernel times and as the union of their intervals)
 5. reduced granite (float32, 2 layers, full attention and a sliding
@@ -1131,15 +1163,24 @@ def shared_prefix_stream(rng, np, vocab, bs):
     return lens, prompts
 
 
+def _patches_of(torch, patches, i):
+    """``forward()``'s patch argument for request i (None without)."""
+    if patches is None:
+        return None
+    return torch.as_tensor(patches[i], device="cuda")[None]
+
+
 def check_first_tokens(torch, model, cfg, prompts, firsts, what,
-                       tol=FIRST_TOKEN_TOL["fp16"]):
+                       tol=FIRST_TOKEN_TOL["fp16"], patches=None):
     """Each request's first token must be the argmax of the plain
-    full-sequence ``forward()`` on its prompt up to ``tol`` (bf16 noise,
-    plus the pool's quantization error for an int8/fp8 pool)."""
+    full-sequence ``forward()`` on its prompt (after its ``patches`` for a
+    vlm) up to ``tol`` (bf16 noise, plus the pool's quantization error for
+    an int8/fp8 pool)."""
     worst = 0.0
     with torch.inference_mode():
-        for p, first in zip(prompts, firsts):
-            logits = model(torch.tensor(p, device="cuda")[None])[0, -1, :cfg.vocab_size]
+        for i, (p, first) in enumerate(zip(prompts, firsts)):
+            logits = model(torch.tensor(p, device="cuda")[None],
+                           _patches_of(torch, patches, i))[0, -1, :cfg.vocab_size]
             require(torch.isfinite(logits).all().item(), "non-finite logits")
             worst = max(worst, (logits.max() - logits[int(first)]).item())
     print(f"[smoke] {what} vs forward(): logits finite; first tokens within "
@@ -1892,21 +1933,25 @@ def spec_stream(rng, np, vocab, n):
     return lens, prompts
 
 
-def oracle_check(torch, np, model, cfg, prompts, streams, what, margin):
+def oracle_check(torch, np, model, cfg, prompts, streams, what, margin,
+                 patches=None):
     """Greedy full recompute over the COMMITTED context: one ``forward()``
-    of each prompt plus its committed tokens gives the logits after every
-    prefix.  Every committed token's logit must lie within ``margin`` of
-    the argmax logit there, and wherever the top-2 margin exceeds
-    ``margin`` (stated before the first card run) it must be the argmax.
+    of each prompt plus its committed tokens (after its ``patches`` for a
+    vlm) gives the logits after every prefix.  Every committed token's
+    logit must lie within ``margin`` of the argmax logit there, and
+    wherever the top-2 margin exceeds ``margin`` (stated before the first
+    card run) it must be the argmax.
     Returns (steps held to the argmax, steps under the margin)."""
     checked = under = 0
     worst = 0.0
     with torch.inference_mode():
-        for p, toks in zip(prompts, streams):
+        for i, (p, toks) in enumerate(zip(prompts, streams)):
             toks = np.asarray(toks)
             ctx = np.concatenate([p, toks[:-1]]).astype(np.int32)
-            lg = model(torch.tensor(ctx, device="cuda")[None])[
-                0, len(p) - 1:, :cfg.vocab_size].float()
+            pe = _patches_of(torch, patches, i)
+            off = 0 if pe is None else pe.shape[1]
+            lg = model(torch.tensor(ctx, device="cuda")[None], pe)[
+                0, off + len(p) - 1:, :cfg.vocab_size].float()
             require(torch.isfinite(lg).all().item(), f"{what}: non-finite logits")
             top2 = lg.topk(2, dim=-1).values
             got = lg.gather(1, torch.as_tensor(toks, device="cuda").long()[:, None])
@@ -2146,7 +2191,8 @@ def mamba2_engine_waves(torch, np, cfg, model, prompts, unified_out):
     return launches, s_launches
 
 
-def profile_window(torch, eng, prompts, gen, label, families=None):
+def profile_window(torch, eng, prompts, gen, label, families=None,
+                   extras=None):
     """Where the time goes: one wave (4 requests) under ``torch.profiler``,
     recording device activity only; device-busy share of the wall time
     and the device time by kernel family (``families`` adds named ones).
@@ -2154,14 +2200,15 @@ def profile_window(torch, eng, prompts, gen, label, families=None):
     (whose event tree took ~30 s a window to build): the busy time is
     printed both as the sum of kernel times (as before) and as the union
     of their intervals (a programmatic dependent's wait overlaps its
-    predecessor).  Runs outside the counted main-path waves.  Returns the
-    idle share of the union (None when the profiler saw no device time)."""
+    predecessor).  Runs outside the counted main-path waves; ``extras``
+    holds each request's extras (a vlm's patches).  Returns the idle share
+    of the union (None when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for p in prompts:
-            eng.submit(p, gen)
+        for i, p in enumerate(prompts):
+            eng.submit(p, gen, extras=None if extras is None else extras[i])
         eng.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2214,6 +2261,609 @@ def profile_window(torch, eng, prompts, gen, label, families=None):
         print(f"[smoke] {label} profile top: {ns / 1e6:8.2f}"
               f" ms x{count:<6} {name[:90]}")
     return idle
+
+
+# ----------------------------------------------------------------------
+# the hybrid (recurrentgemma-9b) and vlm (internvl2-2b) families
+# ----------------------------------------------------------------------
+def family_kernel_phase(torch, np):
+    """Kernels 3 and 1/1q at the hybrid's and the vlm's shapes, bf16 q,
+    each held to its plain version (within ``TOL``) and to the float64
+    oracle (``ref.check_ratio`` <= 1; the decode cases with the plan's
+    key splits and with one forced split), then timed beside the plain
+    version, SDPA and the bound: flash (a) Hq 16 / Hkv 1 / D 256 under
+    the 2048 window at S 2304 and 2560 (recurrentgemma's prefill) and (b)
+    Hq 16 / Hkv 8 / D 128, causal, S 1536 (internvl2's 1,024 patches +
+    512 text tokens); decode (c) G 16 / D 256 under the 2048 window, four
+    slots at 2047 / 2048 / 2300 / 4000 and (d) G 2 / D 128, slots at 0 /
+    17 / 1300 / 1543, each over a native and an int8 pool.  Returns
+    {case: timing row}."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.attention import flash, paged
+    from repro_torch.kernels.attention import ref as aref
+
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    rows = {}
+
+    def row(name, err, ratio, kernel, plain, sdpa, bound):
+        r = dict(max_abs_err=err, oracle_ratio=ratio,
+                 ms=time_ms(torch, kernel, flush),
+                 plain_ms=time_ms(torch, plain, flush),
+                 library_ms=time_ms(torch, sdpa, flush))
+        r["bound_ms"], r["bound_by"] = bound
+        print(f"[smoke] {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+        rows[name] = r
+
+    flash_cases = [("(a) recurrentgemma prefill", s, 16, 1, 256, 2048)
+                   for s in (2304, 2560)]
+    flash_cases.append(("(b) internvl2 prefill", 1536, 16, 8, 128, None))
+    for what, s, hq, hkv, d, window in flash_cases:
+        mk = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        q, k, v = mk(1, s, hq, d), mk(1, s, hkv, d), mk(1, s, hkv, d)
+        kw = dict(causal=True, window=window, q_offset=0)
+        out = flash.flash_attention_fwd(q, k, v, **kw)
+        plain = flash.flash_attention_plain(q, k, v, **kw)
+        want = aref.flash_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - plain.float()).abs().max().item()
+        r_k, r_p = aref.check_ratio(out, want), aref.check_ratio(plain, want)
+        name = (f"flash_attention bf16 {what} (S {s}, Hq {hq} / Hkv {hkv}, "
+                f"D {d}, window {window})")
+        print(f"[smoke] {name}: max|kernel-plain| {err:.3e} (tol "
+              f"{TOL['bfloat16']}); oracle ratio kernel {r_k:.3f} (plain "
+              f"{r_p:.3f})")
+        require(torch.isfinite(out).all().item(), f"{name}: non-finite")
+        require(err <= TOL["bfloat16"], f"{name}: err {err}")
+        require(r_k <= 1.0, f"{name}: oracle ratio {r_k}")
+        sdpa = flash_sdpa_yardstick(torch, q, k, v, q_offset=0)
+        if window is not None:  # SDPA with the same window mask
+            import torch.nn.functional as F
+
+            pos = torch.arange(s, device="cuda")
+            m = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (x.repeat_interleave(hq // hkv, 2).transpose(1, 2)
+                      .contiguous() for x in (k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,  # noqa: E731
+                                                          attn_mask=m)
+        row(name, err, r_k,
+            lambda: flash.flash_attention_fwd(q, k, v, **kw),
+            lambda: flash.flash_attention_plain(q, k, v, **kw), sdpa,
+            flash_bound_ms("bfloat16", q, k, causal=True, window=window,
+                           q_offset=0))
+    rng = np.random.default_rng(28)
+    sms = _sms(torch)
+    decode_cases = [("(c) recurrentgemma decode", [2047, 2048, 2300, 4000],
+                     1, 16, 256, 2048),
+                    ("(d) internvl2 decode", [0, 17, 1300, 1543], 8, 2, 128,
+                     None)]
+    for what, starts, hkv, g, d, window in decode_cases:
+        w = max(starts) // 16 + 2
+        for kv_dtype in ("fp16", "int8"):
+            q, kp, vp, bt, st, _ = _case(
+                torch, rng, torch.bfloat16, b=4, q_len=1, hkv=hkv, g=g, d=d,
+                bs=16, w=w, nb=4 * w + 8, starts=starts, lens=[1] * 4)
+            sc = {}
+            if kv_dtype != "fp16":
+                kp, ks = quant.kv_quantize(kp, kv_dtype)
+                vp, vs = quant.kv_quantize(vp, kv_dtype)
+                sc = {"k_scales": ks, "v_scales": vs}
+            out = paged.paged_decode_fwd(q, kp, vp, bt, st, window=window, **sc)
+            one = paged.paged_decode_fwd(q, kp, vp, bt, st, window=window,
+                                         splits=1, **sc)
+            plain = paged.paged_decode_plain(q, kp, vp, bt, st, window=window,
+                                             **sc)
+            want = aref.paged_attention_ref(q, kp, vp, bt, st, window=window,
+                                            **sc)
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs().max().item()
+            r_k, r_1k, r_p = (aref.check_ratio(x, want)
+                              for x in (out, one, plain))
+            r_1 = aref.check_ratio(out, one, *aref.SPLIT_CHECK)
+            splits = paged.decode_split_plan(4, hkv, w, sms)
+            name = (f"paged_decode bf16 q {what}, {kv_dtype} pool (slots "
+                    f"{starts}, G {g}, D {d}, window {window})")
+            print(f"[smoke] {name}: max|kernel-plain| {err:.3e}; oracle ratio "
+                  f"kernel {r_k:.3f} ({splits} splits; one split {r_1k:.3f}; "
+                  f"plain {r_p:.3f}); splits vs one {r_1:.3f}")
+            require(torch.isfinite(out).all().item(), f"{name}: non-finite")
+            require(err <= TOL["bfloat16"], f"{name}: err {err}")
+            require(max(r_k, r_1k) <= 1.0 and r_1 <= 1.0,
+                    f"{name}: oracle {r_k} / one split {r_1k} / vs one {r_1}")
+            if kv_dtype == "fp16":
+                sdpa = sdpa_yardstick(torch, q, kp, vp, bt, starts, 1, window)
+            else:  # over the pre-dequantized view, dequant excluded
+                kd = quant.kv_dequantize(kp, sc["k_scales"], torch.bfloat16)
+                vd = quant.kv_dequantize(vp, sc["v_scales"], torch.bfloat16)
+                sdpa = sdpa_yardstick(torch, q, kd, vd, bt, starts, 1, window)
+            row(name, err, max(r_k, r_1k),
+                lambda: paged.paged_decode_fwd(q, kp, vp, bt, st,
+                                               window=window, **sc),
+                lambda: paged.paged_decode_plain(q, kp, vp, bt, st,
+                                                 window=window, **sc),
+                sdpa, bound_ms("bfloat16", q, kp, bt, starts, [1] * 4, window,
+                               g=g, quantized=kv_dtype != "fp16"))
+    del flush_buf
+    return rows
+
+
+def hybrid_stream(rng, np, vocab):
+    """8 prompts: four of 2100-2400 tokens (past the 2048 window on the
+    prefill and on the decode side), four of 200-512."""
+    lens = ([int(x) for x in rng.integers(2100, 2401, 4)]
+            + [int(x) for x in rng.integers(200, 513, 4)])
+    return lens, [rng.integers(0, vocab, (n,)).astype(np.int32) for n in lens]
+
+
+def _attention_counts():
+    from repro_torch.kernels.attention import flash, ops, paged
+
+    return {"flash_attention": ops.flash_attention.launches,
+            "paged_decode": ops.paged_attention.launches,
+            "paged_decode_quant": ops.paged_attention.quant_launches,
+            "paged_span": (ops.paged_span_attention.launches
+                           + ops.paged_span_attention.quant_launches),
+            "plain": (paged.paged_decode_plain.calls
+                      + paged.paged_span_plain.calls
+                      + flash.flash_attention_plain.calls)}
+
+
+def _merged_trace(tracer, base):
+    from repro_torch import core as xtrace
+
+    segments = list(tracer.segments)
+    paths = xtrace.write_prv(tracer.finish(), base, segments=segments)
+    trace = xtrace.parse_prv(paths["prv"])
+    return trace, xtrace.serve_latency_summary(trace), len(segments)
+
+
+def check_budget_triples(np, trace, prompt_tokens, what):
+    """Every EV_STEP_BUDGET sample equals EV_CHUNK_TOKENS +
+    EV_DECODE_TOKENS and the chunk tokens sum to the prompts' (whole
+    prompts, patches included, folded into the next triple)."""
+    from repro_torch.core import events as ev
+
+    evs = trace.events
+    by = {c: evs[evs["type"] == c]["value"].astype(np.int64) for c in (
+        ev.EV_STEP_BUDGET, ev.EV_CHUNK_TOKENS, ev.EV_DECODE_TOKENS)}
+    n = len(by[ev.EV_STEP_BUDGET])
+    require(n > 0 and all(len(v) == n for v in by.values()),
+            f"{what}: counter triples incomplete {[len(v) for v in by.values()]}")
+    require((by[ev.EV_STEP_BUDGET] == by[ev.EV_CHUNK_TOKENS]
+             + by[ev.EV_DECODE_TOKENS]).all(),
+            f"{what}: EV_STEP_BUDGET != EV_CHUNK_TOKENS + EV_DECODE_TOKENS")
+    chunk = int(by[ev.EV_CHUNK_TOKENS].sum())
+    require(chunk == prompt_tokens,
+            f"{what}: chunk tokens {chunk} != prompt tokens {prompt_tokens}")
+    return n
+
+
+def rglru_timing(torch, model, cfg):
+    """Device time of one rec layer's RG-LRU at the wave's shapes: the
+    chunked scan over a 2304-token prompt (B 1) and the decode step over
+    4 slots (the plain torch ops the JAX package also runs without a
+    kernel; CUDA events, L2 flushed)."""
+    from repro_torch.models import rglru
+
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    rec = next(m for m in model.layers if hasattr(m, "rec")).rec
+    lru = cfg.lru_width
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((1, 2304, lru), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x1 = x[:, :4].reshape(4, 1, lru)
+    h0 = torch.zeros((4, lru), device="cuda")
+    with torch.inference_mode():
+        scan = time_ms(torch, lambda: rglru.rglru_scan(rec, x), flush_buf.zero_,
+                       iters=5)
+        step = time_ms(torch, lambda: rglru.rglru_step(rec, x1, h0),
+                       flush_buf.zero_)
+    n_rec = sum(hasattr(m, "rec") for m in model.layers)
+    print(f"[smoke] RG-LRU (plain torch, one rec layer): chunked scan over "
+          f"2304 tokens {scan:.3f} ms ({n_rec} layers: {n_rec * scan:.1f} ms a "
+          f"prompt), decode step over 4 slots {step:.4f} ms")
+    del flush_buf
+    return scan, step
+
+
+def hybrid_phase(torch, np):
+    """Waves (o) and (p): full-width recurrentgemma-9b (38 layers: 12 x
+    (rec, rec, attn) + 2 rec, d_model 4096, MQA 16 / 1 heads of 256, local
+    window 2048, bf16, ~8.58B random weights from a seed).  The model is
+    freed before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("recurrentgemma-9b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    print(f"[smoke] recurrentgemma-9b full width: {n_params / 1e9:.3f}B params "
+          f"{cfg.dtype} ({n_params * 2 / 1e9:.2f} GB), {cfg.num_layers} layers "
+          f"({sum(hasattr(m, 'rec') for m in model.layers)} rec, "
+          f"{sum(hasattr(m, 'attn') for m in model.layers)} attn), d_model "
+          f"{cfg.d_model}, window {cfg.attention_window}, init "
+          f"{time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    lens, prompts = hybrid_stream(np.random.default_rng(1), np, cfg.vocab_size)
+    rglru_timing(torch, model, cfg)
+    ref = hybrid_unified_wave(torch, np, cfg, model, lens, prompts)
+    hybrid_kernel_vs_plain(torch, np, model, cfg, prompts[:4])
+    hybrid_more_engines(torch, np, cfg, model, prompts, ref)
+    print(f"[smoke] recurrentgemma-9b peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hybrid_unified_wave(torch, np, cfg, model, lens, prompts):
+    """Wave (o): the unified engine, bf16 pool, 4 slots, prefix cache
+    requested (the family gate keeps it off), traced: segments flushed
+    and merged into one ``.prv``; a profiled window first (also the
+    warm-up) with the RG-LRU's ops named.  Returns the streams."""
+    from repro_torch import core as xtrace
+    from repro_torch.kernels.attention import ops
+    from repro_torch.serve.step import UnifiedServeEngine
+
+    gen = 32
+    kw = dict(device="cuda", num_slots=4, max_len=max(lens) + gen,
+              block_size=16, prefix_cache=True)
+    eng = UnifiedServeEngine(cfg, model, **kw)
+    require(not eng.prefix_cache and not eng.chunkable,
+            "recurrentgemma: prefix cache or chunked prefill on")
+    require(eng.kv_bytes_per_token == 12_288,
+            f"recurrentgemma pool {eng.kv_bytes_per_token} B/token, not 12,288")
+    state = sum(t.numel() * t.element_size() for n, t in eng._caches.items()
+                if not eng._paged_mask[n]) // eng.num_slots
+    idle = profile_window(torch, eng, [prompts[0], prompts[1], prompts[4],
+                                       prompts[5]], gen, "recurrentgemma (o)",
+                          families={"rglru scan: cumsum": ("cumsum", "scan"),
+                                    "rglru scan: masked exp / sum": (
+                                        "reduce", "masked_fill", "exp"),
+                                    "conv1d": ("conv",)})
+    del eng
+    with tempfile.TemporaryDirectory() as tmp:
+        base = pathlib.Path(tmp) / "serve"
+        tracer = xtrace.Tracer("chip-smoke-hybrid").init()
+        eng = UnifiedServeEngine(cfg, model, tracer=tracer, flush_every=16,
+                                 flush_base=base, **kw)
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, gen) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        c = _attention_counts()
+        trace, lat, n_seg = _merged_trace(tracer, base)
+    served(out, reqs, gen, cfg.vocab_size)
+    st = eng.stats
+    tokens = st["tokens_decoded"]
+    print(f"[smoke] recurrentgemma unified (o): served {len(reqs)} requests "
+          f"(prompts {lens}), {tokens} tokens in {seconds:.2f}s = "
+          f"{tokens / seconds:.1f} tok/s; {st['prefills']} whole-prompt "
+          f"prefills, {st['decode_dispatches']} decode dispatches, peak "
+          f"{st['peak_blocks']} blocks x {eng.kv_bytes_per_token * 16} B, "
+          f"slot state {state} bytes, {st['prefix_hit_tokens']} prefix-hit "
+          f"tokens; launches {c}")
+    require(c["flash_attention"] > 0 and c["paged_decode"] > 0,
+            f"wave (o): kernel idle {c}")
+    require(c["paged_span"] == 0 and c["plain"] == 0,
+            f"wave (o): span or plain path ran {c}")
+    require(st["prefix_hit_tokens"] == 0, "wave (o): prefix hits")
+    top = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    last = len(prompts[top]) + gen - 2  # the last decode write position
+    require(len(prompts[top]) >= 2048 and len(out[reqs[top].rid]) == gen,
+            f"wave (o): no decode past the window ({len(prompts[top])})")
+    n_tr = check_budget_triples(np, trace, sum(lens), "wave (o)")
+    t, o = lat["ttft_us"], lat["tpot_us"]
+    print(f"[smoke] recurrentgemma (o) trace: {n_seg} flushed segments merged "
+          f"({trace.summary()}); {n_tr} counter triples, budget = chunk + "
+          f"decode at every sample, chunk tokens = the {sum(lens)} prompt "
+          f"tokens; decode up to position {last} (window "
+          f"{cfg.attention_window}); TTFT p50 {t['p50']:.0f}us / p95 "
+          f"{t['p95']:.0f}us; TPOT p50 {o['p50']:.0f}us / p95 {o['p95']:.0f}us "
+          f"over {t['count']} requests; device idle "
+          f"{idle if idle is None else f'{idle:.1%}'} (profiled wave)")
+    require(n_seg > 0 and t["count"] == len(reqs),
+            f"wave (o): {n_seg} segments, {t['count']} latencies")
+    streams = [out[r.rid] for r in reqs]
+    check_first_tokens(torch, model, cfg, prompts, [s[0] for s in streams],
+                       "recurrentgemma unified (o)")
+    oracle_check(torch, np, model, cfg, prompts, streams,
+                 "recurrentgemma unified (o)", SPEC_ORACLE_MARGIN["fp16"])
+    del eng
+    torch.cuda.empty_cache()
+    return streams
+
+
+def hybrid_kernel_vs_plain(torch, np, model, cfg, prompts, gen=32, length=2112):
+    """Wave (o), the kernel path held to the plain path on one batch: four
+    rows of 2112 tokens prefilled under kernel_mode pallas (flash) and xla
+    (its plain version), written into a paged pool as the engine writes
+    them, then ``gen`` decode steps (positions 2112 on, past the window)
+    through kernel 1 and its plain version, each step fed the pallas
+    argmax: the plain logit of that token within
+    ``SPEC_ORACLE_MARGIN["fp16"]`` of the plain argmax, and the argmax
+    wherever the plain top-2 margin exceeds it."""
+    from repro_torch.kernels.attention import ops
+
+    margin = SPEC_ORACLE_MARGIN["fp16"]
+    b, bs = len(prompts), 16
+    w = (length + gen) // bs + 1
+    tables = (1 + torch.arange(b * w, device="cuda", dtype=torch.int32)
+              ).reshape(b, w)
+    tokens = torch.tensor(np.stack([p[:length] for p in prompts]),
+                          device="cuda")
+    views = {m: model.serving_view(cfg.replace(kernel_mode=m))
+             for m in ("pallas", "xla")}
+    v = cfg.vocab_size
+    worst, checked, under, max_diff = 0.0, 0, 0, 0.0
+    ops.reset_counts()
+    pools, lg = {}, {}
+    with torch.inference_mode():
+        for m, view in views.items():
+            pool = {n: torch.zeros(shape, dtype=dt, device="cuda") for n, (shape, dt)
+                    in view.paged_cache_specs(b, b * w + 1, bs).items()}
+            new, last = view.prefill(tokens, max_len=w * bs, ring=False)
+            for n, leaf in pool.items():
+                if view.paged_leaf_mask()[n]:
+                    leaf[:, tables.reshape(-1).long()] = new[n].reshape(
+                        leaf.shape[0], b * w, bs, *leaf.shape[3:]).to(leaf.dtype)
+                else:
+                    leaf.copy_(new[n])
+            pools[m], lg[m] = pool, last[:, :v]
+        for i in range(gen + 1):
+            tok = lg["pallas"].argmax(-1)
+            x = lg["xla"].float()
+            top2 = x.topk(2, dim=-1).values
+            gap = (top2[:, 0] - x.gather(1, tok[:, None])[:, 0]).cpu().numpy()
+            sure = ((top2[:, 0] - top2[:, 1]) > margin).cpu().numpy()
+            agree = (x.argmax(-1) == tok).cpu().numpy()
+            require((gap <= margin).all() and agree[sure].all(),
+                    f"recurrentgemma kernel vs plain, step {i}: gaps {gap}, "
+                    f"agree {agree} where the top-2 margin > {margin}: {sure}")
+            worst = max(worst, float(gap.max()))
+            checked += int(sure.sum())
+            under += int((~sure).sum())
+            max_diff = max(max_diff, (lg["pallas"].float() - x).abs().max()
+                           .item())
+            if i == gen:
+                break
+            idx = torch.full((b,), length + i, dtype=torch.int32, device="cuda")
+            lg = {m: views[m].decode_step(pools[m], tok.to(torch.int32), idx,
+                                          tables)[:, :v] for m in views}
+    c = _attention_counts()
+    print(f"[smoke] recurrentgemma (o) kernel vs plain on one batch ({b} rows "
+          f"x {length} tokens, {gen} decode steps at positions {length}-"
+          f"{length + gen - 1}): plain logits at the kernel path's tokens "
+          f"within {worst:.4f} of their argmax (margin {margin}); {checked} "
+          f"steps with a top-2 margin > {margin} all agree, {under} under it; "
+          f"max |kernel - plain| logit {max_diff:.4f}; counts {c} (the xla "
+          f"half on the plain path)")
+    require(c["flash_attention"] > 0 and c["paged_decode"] > 0,
+            f"recurrentgemma kernel vs plain: kernel idle {c}")
+
+
+def _engine_counts_run(torch, eng, prompts, gen, extras=None):
+    from repro_torch.kernels.attention import ops
+
+    stats0 = dict(eng.stats)
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, gen, extras=None if extras is None else extras[i])
+            for i, p in enumerate(prompts)]
+    out = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tokens = eng.stats["tokens_decoded"] - stats0["tokens_decoded"]
+    return reqs, out, seconds, tokens, _attention_counts()
+
+
+def hybrid_more_engines(torch, np, cfg, model, prompts, ref):
+    """Wave (p): the model of (o) through the unified engine on an int8
+    pool (kernel 1q; 6,240 B/token), the grouped-prefill
+    ``ContinuousServeEngine`` (two equal-length 2304-token prompts
+    admitted together: one B 2 prefill group, then (o)'s stream) and the
+    fixed-batch ``ServeEngine`` (4 prompts x 2304 tokens over ring caches
+    of the 2048 window; its contiguous decode is the naive one-query path,
+    as in the JAX package: no decode kernel); each with (o)'s checks and
+    its token agreement with (o)."""
+    from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine
+    from repro_torch.serve.step import UnifiedServeEngine
+
+    gen = 32
+    max_len = max(len(p) for p in prompts) + gen
+    match = lambda streams: float(np.mean(  # noqa: E731
+        [(a == b).mean() for a, b in zip(streams, ref)]))
+    # unified, int8 pool
+    eng = UnifiedServeEngine(cfg.replace(kv_dtype="int8"), model, device="cuda",
+                             num_slots=4, max_len=max_len, block_size=16)
+    reqs, out, seconds, tokens, c = _engine_counts_run(torch, eng, prompts, gen)
+    served(out, reqs, gen, cfg.vocab_size)
+    streams = [out[r.rid] for r in reqs]
+    print(f"[smoke] recurrentgemma unified int8 (p): {tokens} tokens in "
+          f"{seconds:.2f}s = {tokens / seconds:.1f} tok/s; pool "
+          f"{eng.kv_bytes_per_token} B/token; launches {c}; greedy token "
+          f"match vs (o) {match(streams):.3f}")
+    require(eng.kv_bytes_per_token == 6_240,
+            f"int8 pool {eng.kv_bytes_per_token} B/token, not 6,240")
+    require(c["flash_attention"] > 0 and c["paged_decode_quant"] > 0
+            and c["paged_decode"] == 0 and c["paged_span"] == 0
+            and c["plain"] == 0, f"wave (p) unified int8: {c}")
+    check_first_tokens(torch, model, cfg, prompts, [s[0] for s in streams],
+                       "recurrentgemma unified int8 (p)",
+                       tol=FIRST_TOKEN_TOL["int8"])
+    oracle_check(torch, np, model, cfg, prompts, streams,
+                 "recurrentgemma unified int8 (p)", SPEC_ORACLE_MARGIN["int8"])
+    del eng
+    # grouped prefill: a B 2 group of two 2304-token prompts, then (o)'s
+    pair = [np.random.default_rng(7).integers(0, cfg.vocab_size, (2304,))
+            .astype(np.int32) for _ in range(2)]
+    wave = pair + list(prompts)
+    eng = ContinuousServeEngine(cfg, model, device="cuda", num_slots=4,
+                                max_len=max(max_len, 2304 + gen),
+                                block_size=16, max_prefills_per_iter=4)
+    reqs, out, seconds, tokens, c = _engine_counts_run(torch, eng, wave, gen)
+    served(out, reqs, gen, cfg.vocab_size)
+    streams = [out[r.rid] for r in reqs]
+    st = eng.stats
+    groups = st["host_syncs"] - st["decode_syncs"]  # one fetch a group
+    print(f"[smoke] recurrentgemma legacy (p): {len(reqs)} requests, {tokens} "
+          f"tokens in {seconds:.2f}s = {tokens / seconds:.1f} tok/s; "
+          f"{st['prefills']} prefills in {groups} groups, "
+          f"{st['decode_dispatches']} decode bursts; launches {c}; greedy "
+          f"token match vs (o) {match(streams[2:]):.3f}")
+    require(c["flash_attention"] > 0 and c["paged_decode"] > 0
+            and c["paged_span"] == 0 and c["plain"] == 0,
+            f"wave (p) legacy: {c}")
+    require(groups < len(wave), "wave (p) legacy: no group of two prompts")
+    check_first_tokens(torch, model, cfg, wave, [s[0] for s in streams],
+                       "recurrentgemma legacy (p)")
+    oracle_check(torch, np, model, cfg, wave, streams,
+                 "recurrentgemma legacy (p)", SPEC_ORACLE_MARGIN["fp16"])
+    del eng
+    torch.cuda.empty_cache()
+    # fixed batch over ring caches
+    batch = np.stack([p[:2304] if len(p) >= 2304 else np.resize(p, 2304)
+                      for p in prompts[:4]])
+    static = ServeEngine(cfg, model, device="cuda", max_len=2304 + gen)
+    c0 = _attention_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = static.generate(batch, num_tokens=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    c = {k: n - c0[k] for k, n in _attention_counts().items()}
+    print(f"[smoke] recurrentgemma fixed batch (p): 4 prompts x 2304 tokens "
+          f"(ring caches of {cfg.attention_window}), {got.size} tokens in "
+          f"{seconds:.2f}s = {got.size / seconds:.1f} tok/s, "
+          f"{static.host_syncs} host syncs; launches {c}")
+    require(c["flash_attention"] > 0 and c["plain"] == 0,
+            f"wave (p) fixed batch: {c}")
+    oracle_check(torch, np, model, cfg, list(batch), list(got),
+                 "recurrentgemma fixed batch (p)", SPEC_ORACLE_MARGIN["fp16"])
+
+
+def vlm_stream(rng, np, cfg):
+    """8 requests: 1,024 seeded patch embeddings each and 200-512 text
+    tokens, in pairs that share a block-aligned text prefix."""
+    lens, prompts = shared_prefix_stream(rng, np, cfg.vocab_size, 16)
+    patches = rng.standard_normal(
+        (len(prompts), cfg.num_patches, cfg.vision_dim)).astype(np.float32)
+    return lens, prompts, [{"patch_embeds": e} for e in patches]
+
+
+def vlm_phase(torch, np):
+    """Waves (q) and (r): full-width internvl2-2b (24 layers, d_model
+    2048, 16 / 8 heads of 128, ~1.89B random weights from a seed, 1,024
+    patch embeddings of width 1,024 a request through ``vision_proj``)
+    through the unified and grouped-prefill engines (q) and the
+    fixed-batch engine (r): flash and decode kernels launched, no plain
+    call, no prefix hit, first tokens within ``FIRST_TOKEN_TOL["fp16"]``
+    of ``forward(tokens, patch_embeds)``'s argmax and the committed
+    tokens under ``SPEC_ORACLE_MARGIN["fp16"]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine
+    from repro_torch.serve.step import UnifiedServeEngine
+
+    cfg = get_config("internvl2-2b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    print(f"[smoke] internvl2-2b full width: {n_params / 1e9:.3f}B params "
+          f"{cfg.dtype} ({n_params * 2 / 1e9:.2f} GB), {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_patches} patches x "
+          f"{cfg.vision_dim}, init {time.perf_counter() - t0:.1f}s")
+    gen, p0 = 32, cfg.num_patches
+    lens, prompts, extras = vlm_stream(np.random.default_rng(1), np, cfg)
+    patches = [e["patch_embeds"] for e in extras]
+    max_len = max(lens) + p0 + gen
+    ref = None
+    for label, cls in (("unified", UnifiedServeEngine),
+                       ("legacy", ContinuousServeEngine)):
+        eng = cls(cfg, model, device="cuda", num_slots=4, max_len=max_len,
+                  block_size=16, prefix_cache=True)
+        require(not eng.prefix_cache, f"internvl2 {label}: prefix cache on")
+        if label == "unified":
+            profile_window(torch, eng, prompts[:4], gen, "internvl2 (q)",
+                           extras=extras[:4])
+        reqs, out, seconds, tokens, c = _engine_counts_run(
+            torch, eng, prompts, gen, extras)
+        served(out, reqs, gen, cfg.vocab_size)
+        streams = [out[r.rid] for r in reqs]
+        st = eng.stats
+        ttft = np.percentile([r.ttft_ns() / 1e6 for r in reqs], [50, 95])
+        tpot = np.percentile([r.tpot_ns() / 1e6 for r in reqs], [50, 95])
+        agree = "" if ref is None else (
+            f"; greedy token match vs unified "
+            f"{float(np.mean([(a == b).mean() for a, b in zip(streams, ref)])):.3f}")
+        print(f"[smoke] internvl2 {label} (q): {len(reqs)} requests (text "
+              f"{lens} + {p0} patches each), {tokens} tokens in "
+              f"{seconds:.2f}s = {tokens / seconds:.1f} tok/s; TTFT p50 "
+              f"{ttft[0]:.0f} / p95 {ttft[1]:.0f} ms, TPOT p50 {tpot[0]:.1f} / "
+              f"p95 {tpot[1]:.1f} ms; pool {eng.kv_bytes_per_token} B/token, "
+              f"{st['prefix_hit_tokens']} prefix-hit tokens; launches "
+              f"{c}{agree}")
+        require(eng.kv_bytes_per_token == 98_304,
+                f"internvl2 pool {eng.kv_bytes_per_token} B/token, not 98,304")
+        require(c["flash_attention"] > 0 and c["paged_decode"] > 0
+                and c["paged_span"] == 0 and c["plain"] == 0,
+                f"wave (q) {label}: {c}")
+        require(st["prefix_hit_tokens"] == 0 and all(
+            r.prefix_hit_tokens == 0 and not r.extras for r in reqs),
+            f"wave (q) {label}: prefix hits or extras kept")
+        check_first_tokens(torch, model, cfg, prompts, [s[0] for s in streams],
+                           f"internvl2 {label} (q)", patches=patches)
+        oracle_check(torch, np, model, cfg, prompts, streams,
+                     f"internvl2 {label} (q)", SPEC_ORACLE_MARGIN["fp16"],
+                     patches=patches)
+        ref = ref or streams
+        del eng
+        torch.cuda.empty_cache()
+    # (r): the fixed batch, four requests of 512 text tokens
+    batch = np.stack([np.resize(p, 512) for p in prompts[:4]])
+    static = ServeEngine(cfg, model, device="cuda", max_len=512 + p0 + gen)
+    c0 = _attention_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = static.generate(batch, num_tokens=gen,
+                          extras={"patch_embeds": np.stack(patches[:4])})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    c = {k: n - c0[k] for k, n in _attention_counts().items()}
+    print(f"[smoke] internvl2 fixed batch (r): 4 x ({p0} patches + 512 text "
+          f"tokens), {got.size} tokens in {seconds:.2f}s = "
+          f"{got.size / seconds:.1f} tok/s, {static.host_syncs} host syncs; "
+          f"launches {c}")
+    require(c["flash_attention"] > 0 and c["plain"] == 0,
+            f"wave (r): {c}")
+    check_first_tokens(torch, model, cfg, list(batch), got[:, 0],
+                       "internvl2 fixed batch (r)", patches=patches[:4])
+    oracle_check(torch, np, model, cfg, list(batch), list(got),
+                 "internvl2 fixed batch (r)", SPEC_ORACLE_MARGIN["fp16"],
+                 patches=patches[:4])
+    print(f"[smoke] internvl2-2b peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del static, model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def reduced_phase(torch, np):
@@ -2423,9 +3073,12 @@ def main() -> int:
     timings["paged_decode_quant"]["oracle_ratio"] = ratios["int8"]
     timings.update(timed("flash kernel", flash_phase))
     timings.update(timed("ssd scan kernel", ssd_phase))
+    timed("hybrid / vlm kernel shapes", family_kernel_phase)
     launches = timed("full width", full_width_phase)
     timed("deepseek-moe", moe_phase)
     launches.update(timed("mamba2 wave", mamba2_wave))
+    timed("recurrentgemma", hybrid_phase)
+    timed("internvl2", vlm_phase)
     timed("reduced", reduced_phase)
     print(f"[smoke] phase wall seconds: {phase_s}")
 

@@ -18,6 +18,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --beam 4 --requests 2 --gen 6
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch recurrentgemma-9b --mode continuous
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch internvl2-2b --mode static
+
 Takes the flags and defaults of ``python -m repro.launch.serve`` for the
 single-engine paths and serves ``reduced(get_config(arch))`` with random
 weights from ``--seed`` through ``--mode unified``
@@ -37,7 +43,12 @@ family, the moe family (deepseek-moe-16b, mixtral-8x22b: the same
 attention kernels with a plain-torch expert FFN) and mamba2-370m (ssm),
 which every mode serves: whole-prompt admission through the SSD scan
 kernel, no pool and no prefix cache (the unified-step line says so and no
-pool line is printed).  ``--spec
+pool line is printed).  It takes recurrentgemma-9b (hybrid: RG-LRU layers
+with slot-indexed state beside local-attention layers on the pool) and
+internvl2-2b (vlm: each request carries seeded patch embeddings,
+``default_rng(1)`` as in the JAX CLI, that prefill before its tokens and
+shift its positions), both admitted whole in every mode, with no prefix
+cache.  ``--spec
 ngram|draft:<arch>`` turns on the speculative lane of ``--mode unified``
 (``--spec-k`` drafts a slot, ``--spec-adaptive`` walks K with the
 acceptance rate; a ``draft:`` model is the one-layer reduced ``<arch>``
@@ -65,6 +76,16 @@ _PORTED_VALUES = {
     "mesh": ("",), "mp": (0,),
     "overlap": ("", "off", "auto"), "replicas": (0,), "disaggregate": (False,),
 }
+
+
+def _request_extras(cfg, rng, n):
+    """Per-request prefill inputs beside the tokens: a vlm's patch
+    embeddings [n, num_patches, vision_dim] (the JAX CLI's draws)."""
+    extras = {}
+    if cfg.family == "vlm":
+        extras["patch_embeds"] = rng.standard_normal(
+            (n, cfg.num_patches, cfg.vision_dim)).astype(np.float32)
+    return extras
 
 
 def main(argv=None):
@@ -154,6 +175,7 @@ def main(argv=None):
 
     from repro_torch import core as xtrace
     from repro_torch.configs import all_arch_names, get_config, reduced
+    from repro_torch.models.params import FAMILIES
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine
     from repro_torch.serve.spec import make_proposer
@@ -163,9 +185,9 @@ def main(argv=None):
         p.error(f"unknown --arch {args.arch!r} (choose from "
                 f"{', '.join(all_arch_names())})")
     cfg = reduced(get_config(args.arch))
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in FAMILIES:
         p.error(f"--arch {args.arch} is family {cfg.family!r}; repro_torch "
-                f"serves the dense, moe and ssm families only")
+                f"serves the {', '.join(FAMILIES)} families only")
     if args.kernel_mode:
         cfg = cfg.replace(kernel_mode=args.kernel_mode)
     if args.kv_dtype:
@@ -175,18 +197,20 @@ def main(argv=None):
     slots = min(args.slots, args.requests)
     if args.beam:
         slots = max(slots, args.beam)  # beams borrow the slot rows
-    max_len = args.prompt_len + args.gen
+    max_len = args.prompt_len + cfg.num_patches + args.gen
     if args.session:  # turn 2 = turn-1 context + 8 follow-up + gen more
         max_len += args.gen + 8
     tracer = xtrace.init(f"serve-{args.arch}") if args.trace else None
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.requests, args.prompt_len)).astype(np.int32)
+    extras = _request_extras(cfg, np.random.default_rng(1), args.requests)
 
     if args.mode == "static":
         engine = ServeEngine(cfg, model, device=args.device, max_len=max_len,
                              tracer=tracer)
         stats = engine.throughput_stats(prompts, num_tokens=args.gen,
+                                        extras=extras,
                                         temperature=args.temperature,
                                         top_k=args.top_k, top_p=args.top_p,
                                         seed=args.seed)
@@ -257,7 +281,9 @@ def main(argv=None):
             # staggered prompt lengths exercise variable-length admission
             for i in range(args.requests):
                 plen = max(1, args.prompt_len - (i % 4))
-                engine.submit(prompts[i, :plen], args.gen, n_samples=args.n)
+                ex = {k: v[i] for k, v in extras.items()}
+                engine.submit(prompts[i, :plen], args.gen, extras=ex,
+                              n_samples=args.n)
             engine.run()
         stats = engine.throughput_stats()
     device = engine.device
@@ -282,8 +308,10 @@ def main(argv=None):
                   f"{stats['peak_shared']} blocks shared "
                   f"(n={args.beam or args.n} per prompt)")
     if args.mode == "unified":
+        why = ("patch embeddings" if cfg.family == "vlm"
+               else "state-carrying family")
         note = ("on" if engine.chunkable
-                else "off — state-carrying family, whole-prompt admission")
+                else f"off — {why}, whole-prompt admission")
         print(f"[serve] unified step: budget {engine.max_step_tokens} "
               f"tokens/iteration, chunk {engine.chunk_size} "
               f"(chunked prefill {note})")

@@ -2,8 +2,12 @@
 
 The port's slices are the dense decoder (granite, yi, codeqwen,
 mistral-large), the moe family (deepseek-moe, mixtral: the dense
-attention with a mixture-of-experts FFN) and the ssm family (mamba2);
-other families raise ``NotImplementedError``.  Weights are
+attention with a mixture-of-experts FFN), the ssm family (mamba2), the
+hybrid family (recurrentgemma: RG-LRU layers beside local-attention
+layers, their K/V pooled and their recurrent state slot-indexed) and the
+vlm family (internvl2: the dense decoder over projected patch embeddings
+concatenated before the text tokens); encdec raises
+``NotImplementedError``.  Weights are
 drawn from a seeded ``torch.Generator`` on the target device
 (:mod:`repro_torch.models.params`), or loaded from the JAX package's tree
 with ``model.load_state_dict(convert.params_from_jax(tree))``.
@@ -18,7 +22,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as params_mod
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.layers import RMSNorm, embed_tokens, lm_logits, rmsnorm
+from repro_torch.models.layers import (RMSNorm, dense, embed_tokens,
+                                       lm_logits, rmsnorm)
 
 
 def resolve_device(device) -> torch.device:
@@ -36,8 +41,9 @@ def resolve_device(device) -> torch.device:
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM: embedding, ``num_layers`` dense, moe or ssm
-    units, final RMSNorm, LM head over the padded vocab."""
+    """Decoder-only LM: embedding (a vlm's projected patches before it),
+    ``num_layers`` dense, moe, ssm or hybrid layers in the JAX run order,
+    final RMSNorm, LM head over the padded vocab."""
 
     def __init__(self, cfg: ModelConfig, *, device, seed: int = 0):
         super().__init__()
@@ -52,45 +58,24 @@ class DecoderLM(nn.Module):
             return params_mod.init_leaf(d, d.shape if shape is None else shape,
                                         self.dtype, gen, device)
 
-        def layer_slice(tree):
-            return {k: init(d, d.shape[1:]) for k, d in tree.items()}
-
         emb = decls["embed"]
         self.embedding = nn.Parameter(init(emb["embedding"]), requires_grad=False)
         self.lm_head = (nn.Parameter(init(emb["lm_head"]), requires_grad=False)
                         if "lm_head" in emb else None)
-        units = decls["stack"]["units"]
         layers = []
-        for _ in range(cfg.num_layers):
-            if cfg.family == "ssm":
-                # one tensor per entry: a decl, a norm's scale, a dense's w
-                layers.append(tf_mod.SSMLayer(layer_slice({
-                    k: v if isinstance(v, params_mod.ParamDecl)
-                    else next(iter(v.values()))
-                    for k, v in units["mamba"].items()})))
-                continue
-            a = units["attn"]
-            attn = {f"w{n}": init(a[f"w{n}"]["w"], a[f"w{n}"]["w"].shape[1:])
-                    for n in "qkvo"}
-            for n in "qkv":
-                if "b" in a[f"w{n}"]:
-                    attn[f"b{n}"] = init(a[f"w{n}"]["b"], a[f"w{n}"]["b"].shape[1:])
-            ln = layer_slice({"ln1": units["ln1"]["scale"],
-                              "ln2": units["ln2"]["scale"]})
-            if cfg.family == "moe":
-                m = units["moe"]
-                moe = {"router": init(m["router"]["w"],
-                                      m["router"]["w"].shape[1:])}
-                moe.update(layer_slice(m["experts"]))
-                for k, v in m.get("shared", {}).items():
-                    moe[f"shared_{k}"] = init(v["w"], v["w"].shape[1:])
-                layers.append(tf_mod.MoELayer(ln["ln1"], attn, ln["ln2"], moe))
-                continue
-            mlp = {k: init(v["w"], v["w"].shape[1:])
-                   for k, v in units["mlp"].items()}
-            layers.append(tf_mod.DenseLayer(ln["ln1"], attn, ln["ln2"], mlp))
+        for kind, stack, sub in params_mod.layer_plan(cfg):
+            tree = decls["stack"][stack]
+            layers.append(_build_layer(kind, tree if sub is None else tree[sub],
+                                       init))
         self.layers = nn.ModuleList(layers)
         self.final_norm = RMSNorm(init(decls["final_norm"]["scale"]))
+        if cfg.family == "vlm":
+            vp = decls["vision_proj"]
+            self.vision_proj = nn.ParameterDict({
+                k: nn.Parameter(init(d), requires_grad=False)
+                for k, d in vp.items()})
+        else:
+            self.vision_proj = None
 
     @property
     def device(self) -> torch.device:
@@ -130,14 +115,31 @@ class DecoderLM(nn.Module):
             logits = torch.tanh(logits / c) * c
         return logits
 
-    def forward(self, tokens, with_aux: bool = False):
-        """tokens [B, S] -> float32 logits [B, S, V_padded]; causal
-        self-attention (or the ssm scan) over the whole sequence, no
-        cache.  ``with_aux`` returns (logits, aux) instead, aux the moe
+    def _embed_inputs(self, tokens, patch_embeds=None):
+        """Token embeddings; a vlm's ``patch_embeds`` [B, P, vision_dim]
+        go through ``vision_proj`` and are concatenated BEFORE the tokens
+        (JAX ``DecoderLM._embed_inputs``), so text position i sits at
+        P + i."""
+        x = embed_tokens(self.embedding, tokens, self.dtype)
+        if self.cfg.family != "vlm":
+            return x
+        if patch_embeds is None:
+            raise ValueError(f"{self.cfg.name!r} (vlm) needs patch_embeds "
+                             f"[B, {self.cfg.num_patches}, "
+                             f"{self.cfg.vision_dim}]")
+        vp = self.vision_proj
+        patches = dense(vp["w"], patch_embeds.to(self.dtype), vp["b"])
+        return torch.cat([patches, x], dim=1)
+
+    def forward(self, tokens, patch_embeds=None, with_aux: bool = False):
+        """tokens [B, S] (a vlm: and ``patch_embeds`` [B, P, vision_dim])
+        -> float32 logits [B, P + S, V_padded]; causal self-attention (or
+        the ssm / RG-LRU scan) over the whole sequence, no cache.
+        ``with_aux`` returns (logits, aux) instead, aux the moe
         load-balance loss summed over the layers (0 for other families),
         as the JAX ``forward``'s third output."""
-        x = embed_tokens(self.embedding, tokens, self.dtype)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self._embed_inputs(tokens, patch_embeds)
+        positions = torch.arange(x.shape[1], device=tokens.device)
         x, _, aux = tf_mod.apply_stack(self.layers, x, self.cfg,
                                        positions=positions)
         if with_aux:
@@ -145,16 +147,19 @@ class DecoderLM(nn.Module):
                 aux, dtype=torch.float32, device=x.device)
         return self._logits(x)
 
-    def prefill(self, tokens, max_len: int | None = None, ring: bool = True):
-        """tokens [B, S] -> (caches {"k", "v"} [L, B, C, Hkv, D], last
-        logits [B, V_padded]).  ``max_len`` sets the cache capacity C
-        (default S; a sliding window caps it, ring-arranged); ``ring=False``
-        keeps full-length K/V under a window (paged prefill: the pool
-        stores absolute positions and masks the window).  An ssm stack
-        returns its decode state instead, {"ssm", "conv_x", "conv_b",
-        "conv_c"} [L, B, ...], and ignores both."""
-        x = embed_tokens(self.embedding, tokens, self.dtype)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+    def prefill(self, tokens, max_len: int | None = None, ring: bool = True,
+                patch_embeds=None):
+        """tokens [B, S] (a vlm: and ``patch_embeds``, P positions before
+        the tokens) -> (caches, last logits [B, V_padded]).  Attention
+        layers give {"k", "v"} [A, B, C, Hkv, D]: ``max_len`` sets the
+        cache capacity C (default P + S; a sliding window caps it,
+        ring-arranged); ``ring=False`` keeps full-length K/V under a window
+        (paged prefill: the pool stores absolute positions and masks the
+        window).  ssm layers give their decode state {"ssm", "conv_x",
+        "conv_b", "conv_c"}, rec layers {"lru", "conv"}, each [L_kind, B,
+        ...]; a hybrid returns both kinds."""
+        x = self._embed_inputs(tokens, patch_embeds)
+        positions = torch.arange(x.shape[1], device=tokens.device)
         x, caches, _ = tf_mod.apply_stack(self.layers, x, self.cfg,
                                           positions=positions, mode="prefill",
                                           cache_len=max_len, ring=ring)
@@ -209,9 +214,14 @@ class DecoderLM(nn.Module):
         return self._logits(x)
 
     def _attention_only(self, what: str):
-        if self.cfg.family == "ssm":
+        """The chunk-resumable paths take token-only attention stacks
+        (JAX asserts ``family in ("dense", "moe")``): a recurrent state
+        cannot resume a prompt mid-way, and vlm patches sit off the token
+        grid."""
+        if self.cfg.family not in ("dense", "moe"):
             raise ValueError(f"{what} needs an attention-only stack; "
-                             f"{self.cfg.name!r} carries ssm state")
+                             f"{self.cfg.name!r} is family "
+                             f"{self.cfg.family!r}")
 
     # ------------------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int):
@@ -222,24 +232,62 @@ class DecoderLM(nn.Module):
         return tf_mod.stack_cache_spec(self.cfg, batch, max_len, self.dtype)
 
     def paged_cache_specs(self, num_slots: int, num_blocks: int, block_size: int):
-        """The engine's cache leaves: name -> (shape, dtype).  Dense:
-        {"k", "v"} [L, NB, bs, Hkv, D], plus {"k_scale", "v_scale"}
-        [L, NB, bs, Hkv] f32 for a quantized pool, every leaf pooled.
-        ssm: the decode state [L, num_slots, ...], slot-indexed, none
-        pooled."""
-        if self.cfg.family == "ssm":
-            return tf_mod.stack_state_spec(self.cfg, num_slots, self.dtype)
-        return tf_mod.stack_paged_cache_spec(self.cfg, num_blocks, block_size,
-                                             self.dtype)
+        """The engine's cache leaves: name -> (shape, dtype).  Attention
+        layers: {"k", "v"} [A, NB, bs, Hkv, D], plus {"k_scale",
+        "v_scale"} [A, NB, bs, Hkv] f32 for a quantized pool, pooled.
+        ssm / rec layers: their decode state [L_kind, num_slots, ...],
+        slot-indexed.  A hybrid holds both (``fully_paged()`` False)."""
+        spec = tf_mod.stack_state_spec(self.cfg, num_slots, self.dtype)
+        if tf_mod.num_attention_layers(self.cfg):
+            spec.update(tf_mod.stack_paged_cache_spec(
+                self.cfg, num_blocks, block_size, self.dtype))
+        return spec
 
     def paged_leaf_mask(self) -> dict[str, bool]:
         """name -> True where the cache leaf is block-pooled."""
-        pooled = self.cfg.family != "ssm"
-        return {n: pooled for n in self.paged_cache_specs(1, 1, 1)}
+        return {n: tf_mod.leaf_kind(n) == "attn"
+                for n in self.paged_cache_specs(1, 1, 1)}
 
     def fully_paged(self) -> bool:
         """Every cache leaf is pooled: the precondition for prefix reuse."""
         return all(self.paged_leaf_mask().values())
+
+
+def _build_layer(kind: str, units: dict, init):
+    """One layer of ``kind`` from its layers-stacked decl subtree, each
+    tensor drawn as one layer's slice of the stacked decl (the JAX init
+    scales)."""
+    def one(d):
+        return init(d, d.shape[1:])
+
+    def proj(tree):  # a dense's w (its bias, if any, is taken separately)
+        return {k: one(v["w"]) for k, v in tree.items()}
+
+    if kind == "ssm":
+        # one tensor per entry: a decl, a norm's scale, a dense's w
+        return tf_mod.SSMLayer({
+            k: one(v if isinstance(v, params_mod.ParamDecl)
+                   else next(iter(v.values())))
+            for k, v in units["mamba"].items()})
+    if kind == "rec":
+        ln1, ln2 = one(units["ln1"]["scale"]), one(units["ln2"]["scale"])
+        rec = {k: one(v["w"] if isinstance(v, dict) else v)
+               for k, v in units["rec"].items()}
+        return tf_mod.RecLayer(ln1, rec, ln2, proj(units["mlp"]))
+    a = units["attn"]
+    attn = proj(a)
+    for n in "qkv":
+        if "b" in a[f"w{n}"]:
+            attn[f"b{n}"] = one(a[f"w{n}"]["b"])
+    ln1, ln2 = one(units["ln1"]["scale"]), one(units["ln2"]["scale"])
+    if kind == "moe":
+        m = units["moe"]
+        moe = {"router": one(m["router"]["w"])}
+        moe.update({k: one(d) for k, d in m["experts"].items()})
+        for k, v in m.get("shared", {}).items():
+            moe[f"shared_{k}"] = one(v["w"])
+        return tf_mod.MoELayer(ln1, attn, ln2, moe)
+    return tf_mod.DenseLayer(ln1, attn, ln2, proj(units["mlp"]))
 
 
 def build_model(cfg: ModelConfig, *, device="cuda", seed: int = 0) -> DecoderLM:

@@ -1,5 +1,6 @@
-"""Parameter declarations and seeded initialisation for the dense, moe
-and ssm (Mamba-2) decoders.
+"""Parameter declarations and seeded initialisation for the dense, moe,
+ssm (Mamba-2), hybrid (Griffin: RG-LRU + local attention) and vlm
+decoders.
 
 The JAX package declares every parameter once as a ``ParamDecl`` (shape +
 initializer) and initialises the whole layers-stacked tree from one PRNG
@@ -34,7 +35,7 @@ class ParamDecl:
     """Declaration of one parameter: its (stacked) shape and initializer."""
 
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones | embed | conv | ssm_*
+    init: str = "normal"  # normal | zeros | ones | embed | conv | ssm_* | rglru_lambda
     scale: float | None = None  # stddev override for "normal"
     dtype: torch.dtype | None = None  # None -> model default dtype
 
@@ -58,14 +59,38 @@ def _stack(tree, n: int):
     return {k: _stack(v, n) for k, v in tree.items()}
 
 
-FAMILIES = ("dense", "moe", "ssm")  # the ported layer families
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")  # the ported families
 
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"repro_torch ports the dense, moe and ssm families only; "
-            f"{cfg.name!r} is family {cfg.family!r}")
+            f"repro_torch ports the dense, moe, ssm, hybrid and vlm "
+            f"families only; {cfg.name!r} is family {cfg.family!r}")
+
+
+def unit_kinds(cfg) -> tuple[str, ...]:
+    """Layer kinds of one scanned unit (JAX ``transformer.unit_kinds``):
+    one layer, or the hybrid's ``block_pattern`` super-block."""
+    if cfg.family == "hybrid":
+        return tuple(cfg.block_pattern)
+    return ("dense" if cfg.family == "vlm" else cfg.family,)
+
+
+def layer_plan(cfg) -> list[tuple[str, str, str | None]]:
+    """The stack's layers in the order the JAX package runs them: the
+    ``units`` (each unit's sub-layers in turn), then the ``tail``
+    (``transformer.stack_decl``: layers that do not fill a whole
+    super-block, recurrentgemma-9b's 12 x (rec, rec, attn) + 2 rec).
+    Each entry is (kind, stack key "units" | "tail", sub-layer key
+    "subI" or None for a one-layer unit)."""
+    kinds = unit_kinds(cfg)
+    if len(kinds) == 1:
+        return [(kinds[0], "units", None)] * cfg.num_layers
+    nb, rem = divmod(cfg.num_layers, len(kinds))
+    plan = [(k, "units", f"sub{i}") for _ in range(nb)
+            for i, k in enumerate(kinds)]
+    return plan + [(k, "tail", f"sub{i}") for i, k in enumerate(kinds[:rem])]
 
 
 def moe_decl(cfg) -> dict:
@@ -110,36 +135,45 @@ def _mamba2(cfg) -> dict:
     }
 
 
-def decl_tree(cfg) -> dict:
-    """The JAX ``DecoderLM.decl()`` tree for a dense, moe or ssm config,
-    layers-stacked: ``{"embed", "stack": {"units": ...}, "final_norm"}``
-    (an ssm unit is ``{"mamba": ...}``; a moe unit holds ``"moe"`` in
-    place of ``"mlp"``, ``transformer.layer_decl``)."""
-    check_family(cfg)
-    d = cfg.d_model
-    v = padded_vocab(cfg.vocab_size)
+def _griffin_rec(cfg) -> dict:
+    """One RG-LRU block (``repro.models.rglru.griffin_rec_decl``): gates
+    block-diagonal, one [bw, bw] block per head."""
+    d, lru, g, w = cfg.d_model, cfg.lru_width, cfg.num_heads, cfg.conv_width
+    bw = lru // g
+    f32 = torch.float32
+    return {
+        "w_gate": _dense(d, (lru,)), "w_in": _dense(d, (lru,)),
+        "conv_w": ParamDecl((w, lru), "conv"),
+        "conv_b": ParamDecl((lru,), "zeros", dtype=f32),
+        "rg_a_w": ParamDecl((g, bw, bw)),
+        "rg_a_b": ParamDecl((g, bw), "zeros", dtype=f32),
+        "rg_x_w": ParamDecl((g, bw, bw)),
+        "rg_x_b": ParamDecl((g, bw), "zeros", dtype=f32),
+        "lam": ParamDecl((g, bw), "rglru_lambda", dtype=f32),
+        "w_out": _dense(lru, (d,)),
+    }
+
+
+def _layer(cfg, kind: str) -> dict:
+    """One layer of ``kind`` (JAX ``transformer.layer_decl``): an ssm
+    layer is ``{"mamba": ...}``; the others are ln1 + mixer + ln2 + FFN,
+    the mixer ``attn`` (dense, moe, attn) or ``rec``, the FFN ``moe`` for
+    a moe layer and ``mlp`` otherwise."""
+    if kind == "ssm":
+        return {"mamba": _mamba2(cfg)}
+    d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
     norm = {"scale": ParamDecl((d,), "ones", dtype=torch.float32)}
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
-    embed = {"embedding": ParamDecl((v, d), "embed")}
-    if not cfg.tie_embeddings:
-        embed["lm_head"] = ParamDecl((d, v))
-    if cfg.family == "ssm":
-        return {"embed": embed,
-                "stack": {"units": _stack({"mamba": _mamba2(cfg)},
-                                          cfg.num_layers)},
-                "final_norm": dict(norm)}
-    hd, ff = cfg.head_dim, cfg.d_ff
-    layer = {
-        "ln1": dict(norm), "ln2": dict(norm),
-        "attn": {
+    layer = {"ln1": dict(norm), "ln2": dict(norm)}
+    if kind == "rec":
+        layer["rec"] = _griffin_rec(cfg)
+    else:
+        layer["attn"] = {
             "wq": _dense(d, (cfg.num_heads, hd), bias=cfg.qkv_bias),
             "wk": _dense(d, (cfg.num_kv_heads, hd), bias=cfg.qkv_bias),
             "wv": _dense(d, (cfg.num_kv_heads, hd), bias=cfg.qkv_bias),
             "wo": {"w": ParamDecl((cfg.num_heads, hd, d))},
-        },
-    }
-    if cfg.family == "moe":
+        }
+    if kind == "moe":
         layer["moe"] = moe_decl(cfg)
     else:
         mlp = {"w_up": _dense(d, (ff,))}
@@ -147,8 +181,42 @@ def decl_tree(cfg) -> dict:
             mlp["w_gate"] = _dense(d, (ff,))
         mlp["w_down"] = _dense(ff, (d,))
         layer["mlp"] = mlp
-    return {"embed": embed, "stack": {"units": _stack(layer, cfg.num_layers)},
-            "final_norm": dict(norm)}
+    return layer
+
+
+def _unit(cfg, kinds) -> dict:
+    if len(kinds) == 1:
+        return _layer(cfg, kinds[0])
+    return {f"sub{i}": _layer(cfg, k) for i, k in enumerate(kinds)}
+
+
+def decl_tree(cfg) -> dict:
+    """The JAX ``DecoderLM.decl()`` tree, layers-stacked:
+    ``{"embed", "stack": {"units"[, "tail"]}, "final_norm"[,
+    "vision_proj"]}`` (``transformer.stack_decl``): ``units`` stacks one
+    layer per unit, or a hybrid's ``sub0..subK`` super-block; a hybrid's
+    leftover layers form a length-1 ``tail`` stack; a vlm adds the biased
+    ``vision_proj`` [vision_dim, d_model]."""
+    check_family(cfg)
+    d = cfg.d_model
+    v = padded_vocab(cfg.vocab_size)
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
+    embed = {"embedding": ParamDecl((v, d), "embed")}
+    if not cfg.tie_embeddings:
+        embed["lm_head"] = ParamDecl((d, v))
+    kinds = unit_kinds(cfg)
+    nb, rem = divmod(cfg.num_layers, len(kinds))
+    stack = {"units": _stack(_unit(cfg, kinds), nb)}
+    if rem:
+        stack["tail"] = _stack({f"sub{i}": _layer(cfg, k)
+                                for i, k in enumerate(kinds[:rem])}, 1)
+    tree = {"embed": embed, "stack": stack,
+            "final_norm": {"scale": ParamDecl((d,), "ones",
+                                              dtype=torch.float32)}}
+    if cfg.family == "vlm":
+        tree["vision_proj"] = _dense(cfg.vision_dim, (d,), bias=True)
+    return tree
 
 
 def _leaves(tree):
@@ -184,6 +252,12 @@ def init_leaf(d: ParamDecl, shape, default_dtype, generator, device):
         # Mamba-2: A ~ U[1, 16], stored as log(A); dA = -exp(A_log) * dt
         a = torch.empty(shape, dtype=torch.float32, device=device)
         return a.uniform_(1.0, 16.0, generator=generator).log().to(dtype)
+    elif d.init == "rglru_lambda":
+        # RG-LRU Lambda: a = exp(-c softplus(Lambda)) in [0.9, 0.999]
+        u = torch.empty(shape, dtype=torch.float32, device=device)
+        u.uniform_(0.9, 0.999, generator=generator)
+        sp = -torch.log(u ** (1.0 / 8.0))
+        return torch.log(torch.expm1(sp)).to(dtype)
     elif d.init == "ssm_dt_bias":
         # dt = softplus(raw + bias) in ~[1e-3, 0.1] at init
         u = torch.empty(shape, dtype=torch.float32, device=device)

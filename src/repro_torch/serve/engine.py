@@ -27,7 +27,18 @@ at the admitted slots.  Every engine serves it: this one prefills each
 admitted same-length group in one batch through the SSD scan kernel and
 decodes the state in bursts (a group holds only prompts of one length,
 so no padding enters a state); :class:`ServeEngine` prefills the
-rectangular batch and advances the state in lockstep.
+rectangular batch and advances the state in lockstep.  The hybrid
+(recurrentgemma) holds both: its attention layers' K/V in the pool, its
+RG-LRU state at the slots (``_paged_mask`` per leaf); with a leaf that is
+not pooled there is no prefix cache.
+
+Request extras (``submit(extras=...)``: a vlm's ``patch_embeds``
+[num_patches, vision_dim]) ride the request to its prefill, where a
+group's extras are stacked into one batch; the patches occupy positions
+``0 .. num_patches - 1``, so every text position, the capacity check and
+the decode start shift by ``num_patches``, and such prompts take no
+prefix cache (patches are off the token-hash grid).  They are dropped at
+retirement.
 
 Multi-turn sessions (``submit(session=...)``) pin each finished turn's
 full context in the pool through the prefix cache, so the next turn
@@ -73,6 +84,12 @@ from repro_torch.serve.queue import Request, RequestQueue, _now_ns
 from repro_torch.serve.scheduler import Scheduler
 
 EV_TOKENS_DECODED = 84_001  # user event: tokens decoded so far (one run)
+
+
+def patch_positions(cfg: ModelConfig) -> int:
+    """Positions a request's patches take before its tokens (a vlm's
+    ``num_patches``; 0 for every other family)."""
+    return cfg.num_patches if cfg.family == "vlm" else 0
 
 
 class ContinuousServeEngine:
@@ -150,7 +167,10 @@ class ContinuousServeEngine:
         self.pool = (BlockPool(self.num_blocks, bs, tracer=tracer,
                                kv_dtype=cfg.kv_dtype, block_bytes=block_bytes)
                      if self._has_paged else None)
-        self.prefix_cache = bool(prefix_cache) and self.model.fully_paged()
+        # prefix reuse needs every leaf pooled AND token-only prompts (vlm
+        # patches would shift block contents off the token-hash grid)
+        self.prefix_cache = (bool(prefix_cache) and self.model.fully_paged()
+                             and cfg.family in ("dense", "moe"))
 
         self.queue = RequestQueue()
         self.scheduler = Scheduler(
@@ -247,13 +267,15 @@ class ContinuousServeEngine:
     # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
-    def _prefill_impl(self, tokens, generator, *, cache_len):
-        """Cold prefill of a same-shape group (tokens [k, L]) at the
-        block-aligned cache length -> (caches {"k", "v"} [layers, k,
-        cache_len, Hkv, D], first sampled tokens [k]).  ring=False: a
+    def _prefill_impl(self, tokens, extras, generator, *, cache_len):
+        """Cold prefill of a same-shape group (tokens [k, L], ``extras``
+        name -> [k, ...]) at the block-aligned cache length -> (caches
+        {"k", "v"} [layers, k, cache_len, Hkv, D] and any slot-indexed
+        state [layers, k, ...], first sampled tokens [k]).  ring=False: a
         sliding window keeps FULL-length K/V (the pool stores absolute
         positions; the window is a mask, not a ring)."""
-        caches, last = self.model.prefill(tokens, max_len=cache_len, ring=False)
+        caches, last = self.model.prefill(tokens, max_len=cache_len, ring=False,
+                                          **extras)
         tok = sample_logits(last, generator, self.temperature,
                             self.cfg.vocab_size, self.top_k, self.top_p)
         return caches, tok
@@ -335,7 +357,9 @@ class ContinuousServeEngine:
     # admission policy (Scheduler callback): blocks, not slots, gate entry
     # ------------------------------------------------------------------
     def _start_index(self, req: Request) -> int:
-        return len(req.input_ids())
+        """The request's first decode position: its inputs, after a vlm's
+        patches."""
+        return len(req.input_ids()) + patch_positions(self.cfg)
 
     def can_admit(self, req: Request) -> bool:
         """Enough free/evictable blocks for this prompt (+1 decode
@@ -375,7 +399,7 @@ class ContinuousServeEngine:
     def _lookup_hits(self, req: Request) -> tuple[list[int], list[int]]:
         """(prefix-hit blocks, full hash chain), memoized per (rid, input
         length); the plan covers the atomic can_admit -> on_admit pair."""
-        if not self.prefix_cache:
+        if not self.prefix_cache or req.extras:
             return [], []
         plan = self._admit_plan
         if plan is not None and plan[0] is req:
@@ -417,15 +441,14 @@ class ContinuousServeEngine:
         prefill (engines with :attr:`supports_fork` only); ``session``
         makes it a turn of a conversation whose context stays pinned in
         the pool (needs the prefix cache; a later turn's prompt must
-        extend the stored context; not with fan-out)."""
-        if extras:
-            raise NotImplementedError("request extras belong to vlm/encdec "
-                                      "families, which are not ported")
+        extend the stored context; not with fan-out).  ``extras`` are the
+        request's prefill inputs beside its tokens (a vlm's
+        ``patch_embeds`` [num_patches, vision_dim])."""
         # paged storage holds ABSOLUTE positions: the capacity bound
-        # applies to SWA archs too (the window is a mask); an ssm state
-        # has no length
+        # applies to SWA archs too (the window is a mask), and counts a
+        # vlm's patches; an ssm state has no length
         plen = int(np.asarray(prompt).shape[0])
-        need = plen + int(max_new_tokens) - 1
+        need = plen + patch_positions(self.cfg) + int(max_new_tokens) - 1
         if self._has_paged and need > self.capacity:
             raise ValueError(
                 f"prompt {plen} + {max_new_tokens} new tokens needs cache "
@@ -455,8 +478,9 @@ class ContinuousServeEngine:
                         f"session {session!r}: the new prompt must extend the "
                         f"stored {len(ctx)}-token context (turn k+1 = full "
                         f"conversation so far + new tokens)")
-        req = self.queue.submit(prompt, max_new_tokens, arrival_ns=arrival_ns,
-                                n_samples=n_samples, session=session)
+        req = self.queue.submit(prompt, max_new_tokens, extras=extras,
+                                arrival_ns=arrival_ns, n_samples=n_samples,
+                                session=session)
         if self.tracer is not None:
             self.tracer.emit(ev.EV_QUEUE_DEPTH, len(self.queue))
         return req
@@ -507,6 +531,7 @@ class ContinuousServeEngine:
         if req.session is not None and self.prefix_cache:
             self._session_pin(req)  # before the slot's refs drop
         self._release_blocks(req.slot)
+        req.extras.clear()  # prefill inputs (patches) are dead weight now
         if self.tracer is not None:
             self.tracer.emit(ev.EV_REQ_TTFT_US, max(req.ttft_ns() // 1000, 0))
             self.tracer.emit(ev.EV_REQ_TPOT_US, req.tpot_ns() // 1000)
@@ -623,10 +648,12 @@ class ContinuousServeEngine:
     # ------------------------------------------------------------------
     def _prefill_groups(self, admissions: list[tuple[int, Request]]):
         """Group same-shape admissions so they prefill as ONE batch (a
-        (length, prefix-hit) bucket); mixed shapes degrade to singletons."""
+        (length, prefix-hit, extras' shapes) bucket); mixed shapes degrade
+        to singletons."""
         groups: dict[tuple, list[tuple[int, Request]]] = {}
         for slot, req in admissions:
-            sig = (len(req.input_ids()), req.prefix_hit_tokens)
+            sig = (len(req.input_ids()), req.prefix_hit_tokens,
+                   tuple(sorted((k, v.shape) for k, v in req.extras.items())))
             groups.setdefault(sig, []).append((slot, req))
         return list(groups.values())
 
@@ -657,8 +684,10 @@ class ContinuousServeEngine:
                                              start=hit, cache_len=cache_len)
                 block_ids = [self._slot_blocks[s][m:w0] for s in slots]
             else:
-                new, tok1 = self._prefill_impl(self._dev(np.stack(inputs)), gen,
-                                               cache_len=cache_len)
+                extras = {k: self._dev(np.stack([r.extras[k] for r in reqs]))
+                          for k in reqs[0].extras}
+                new, tok1 = self._prefill_impl(self._dev(np.stack(inputs)),
+                                               extras, gen, cache_len=cache_len)
                 block_ids = [self._slot_blocks[s][:w0] for s in slots]
         self._admit_impl(new, self._dev(np.asarray(slots, np.int64)),
                          self._dev(np.asarray(block_ids, np.int64)), tok1,
@@ -763,10 +792,13 @@ class ContinuousServeEngine:
         return {r.rid: np.asarray(r.tokens, np.int32)
                 for r in self.scheduler.completed[done0:]}
 
-    def serve_batch(self, prompts: np.ndarray, *, num_tokens: int) -> np.ndarray:
-        """Submit a rectangular batch and run to completion.  Returns
-        [B, num_tokens] in submission order."""
-        reqs = [self.submit(p, num_tokens) for p in prompts]
+    def serve_batch(self, prompts: np.ndarray, *, num_tokens: int,
+                    extras: dict | None = None) -> np.ndarray:
+        """Submit a rectangular batch (``extras`` name -> [B, ...]) and run
+        to completion.  Returns [B, num_tokens] in submission order."""
+        reqs = [self.submit(p, num_tokens,
+                            extras={k: v[b] for k, v in (extras or {}).items()})
+                for b, p in enumerate(prompts)]
         out = self.run()
         return np.stack([out[r.rid] for r in reqs])
 
@@ -794,7 +826,10 @@ class ServeEngine:
     (ring-arranged under a sliding window) survives only here.  Sampling
     follows each decode step on the device; the loop fetches every token
     (one host sync per token).  An ssm stack's prefill returns its decode
-    state, which each step advances in place.  ``model`` is a
+    state, which each step advances in place; a hybrid's returns both, the
+    attention ring (its window) and the RG-LRU state.  A vlm's
+    ``extras`` (``patch_embeds`` [B, P, vision_dim]) prefill before the
+    tokens, and decode starts at ``S + P``.  ``model`` is a
     :class:`DecoderLM` on ``device`` (CUDA unless the caller asks for the
     CPU); None builds a seeded random one there."""
 
@@ -821,29 +856,35 @@ class ServeEngine:
         return g
 
     def generate(self, prompts: np.ndarray, *, num_tokens: int,
-                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                 extras: dict | None = None, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 1.0,
                  seed: int = 0) -> np.ndarray:
-        """prompts: [B, S] int32.  Returns [B, num_tokens] generated ids."""
+        """prompts: [B, S] int32 (``extras`` name -> [B, ...]).  Returns
+        [B, num_tokens] generated ids."""
         b, s = prompts.shape
+        start = s + patch_positions(self.cfg)
         tokens = torch.from_numpy(np.asarray(prompts, np.int32)).to(self.device)
+        extras = {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                  for k, v in (extras or {}).items()}
         tr = self.tracer
         vocab = self.cfg.vocab_size
         out = np.zeros((b, num_tokens), np.int32)
         with torch.inference_mode():
             if tr:
                 with tr.phase(ev.PHASE_EVAL), tr.user_function(name="prefill"):
-                    caches, logits = self.model.prefill(tokens,
-                                                        max_len=self.max_len)
+                    caches, logits = self.model.prefill(
+                        tokens, max_len=self.max_len, **extras)
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
             else:
-                caches, logits = self.model.prefill(tokens, max_len=self.max_len)
+                caches, logits = self.model.prefill(tokens, max_len=self.max_len,
+                                                    **extras)
             tok = sample_logits(logits, self._generator(seed, 0, temperature),
                                 temperature, vocab, top_k, top_p)
             out[:, 0] = tok.cpu().numpy()
             self.host_syncs += 1
             for i in range(1, num_tokens):
-                idx = torch.tensor(s + i - 1, dtype=torch.int32,
+                idx = torch.tensor(start + i - 1, dtype=torch.int32,
                                    device=self.device)
                 gen = self._generator(seed, i, temperature)
                 with (tr.user_function(name="decode_step") if tr
@@ -857,13 +898,14 @@ class ServeEngine:
                 self.host_syncs += 1
         return out
 
-    def throughput_stats(self, prompts, num_tokens: int,
+    def throughput_stats(self, prompts, num_tokens: int, extras=None,
                          temperature: float = 0.0, top_k: int = 0,
                          top_p: float = 1.0, seed: int = 0) -> dict:
         syncs0 = self.host_syncs
         t0 = time.perf_counter()
-        self.generate(prompts, num_tokens=num_tokens, temperature=temperature,
-                      top_k=top_k, top_p=top_p, seed=seed)
+        self.generate(prompts, num_tokens=num_tokens, extras=extras,
+                      temperature=temperature, top_k=top_k, top_p=top_p,
+                      seed=seed)
         dt = time.perf_counter() - t0
         total = prompts.shape[0] * num_tokens
         return {"tokens": total, "seconds": dt, "tok_per_s": total / dt,

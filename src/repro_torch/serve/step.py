@@ -13,12 +13,17 @@ engine.  Each scheduler iteration runs ONE dispatch under a token budget
     sampling ONLY rows that complete their prompt and folding that first
     token and its decode position into the slot registers on device.
 
-A state-carrying family (ssm: mamba2; :attr:`chunkable` False) cannot
-resume a prompt mid-way: it is admitted whole, through the inherited
-grouped-prefill path (``_prefill_groups`` / ``_do_prefill``, the SSD scan
-kernel in every layer), with no pool, prefix cache or chunk rows; its
-prompt tokens are folded into the next dispatch's counter triple, and its
-decode dispatches run without block tables.
+Only the token-only attention families (dense, moe) stream chunks
+(:attr:`chunkable`).  The others are admitted whole, through the
+inherited grouped-prefill path (``_prefill_groups`` / ``_do_prefill``)
+and its admission policy, with no prefix cache or chunk rows: a
+state-carrying family (ssm: mamba2, the SSD scan kernel in every layer;
+hybrid: recurrentgemma, the flash kernel in its attention layers) cannot
+resume a prompt mid-way, and a vlm prompt (internvl2) carries patch
+embeddings off the token grid.  Their prompt tokens (patches included)
+are folded into the next dispatch's counter triple; the decode
+dispatches run through the pool where the family has one (hybrid, vlm)
+and without block tables where it has none (ssm).
 
 Block allocation is just-in-time per chunk: admission demands blocks for
 the request's FIRST chunk only (+1 decode headroom), later chunks allocate
@@ -136,9 +141,10 @@ class UnifiedServeEngine(ContinuousServeEngine):
             raise ValueError(
                 f"max_step_tokens {self.max_step_tokens} < num_slots "
                 f"{self.num_slots}: decode alone would overrun the budget")
-        # chunked prefill needs every cache leaf pooled: a recurrent state
-        # cannot resume a prompt mid-way
-        self.chunkable = self.model.fully_paged()
+        # chunked prefill needs every cache leaf pooled (a recurrent state
+        # cannot resume a prompt mid-way) and token-only prompts
+        self.chunkable = (self.model.fully_paged()
+                          and cfg.family in ("dense", "moe"))
         self._progress = np.zeros((self.num_slots,), np.int64)
         self._target = np.zeros((self.num_slots,), np.int64)
         self._prefilling = np.zeros((self.num_slots,), bool)
@@ -312,6 +318,8 @@ class UnifiedServeEngine(ContinuousServeEngine):
     # admission policy: blocks for the FIRST chunk only (JIT per chunk)
     # ------------------------------------------------------------------
     def can_admit(self, req: Request) -> bool:
+        if not self.chunkable:  # whole prompts: the grouped-prefill policy
+            return super().can_admit(req)
         pool = self.pool
         hits, _ = self._lookup_hits(req)
         start = len(hits) * self.block_size
@@ -328,6 +336,8 @@ class UnifiedServeEngine(ContinuousServeEngine):
             # every occupant change passes through here: the proposer's
             # per-slot drafting state (a draft model's cursor) resets
             self.spec.reset_slot(slot)
+        if not self.chunkable:
+            return super().on_admit(slot, req)
         pool = self.pool
         hits, hashes = self._lookup_hits(req)
         self._admit_plan = None
@@ -664,8 +674,8 @@ class UnifiedServeEngine(ContinuousServeEngine):
                 for r in self.scheduler.completed[done0:]}
 
     def _admit_whole_prompts(self):
-        """Budget-looped whole-prompt admission of a state-carrying family
-        through the inherited grouped-prefill path."""
+        """Budget-looped whole-prompt admission of a family that cannot
+        stream chunks, through the inherited grouped-prefill path."""
         tr = self.tracer
         if self.queue and tr:
             with tr.phase(ev.PHASE_ADMIT):

@@ -8,8 +8,11 @@ and 1), the moe block on the card against the CPU at bf16, an int8
 fork's CoW copy of codes and scales,
 the SSD scan kernel and its plain version against the float64 oracle
 (the bf16 tensor-core body also at 2560 tokens, S 1 and 17, ragged
-tails, the narrow P tiles, padded N and strided views), and the engines'
-kernel-vs-plain greedy invariant.
+tails, the narrow P tiles, padded N and strided views), the flash and
+decode kernels at recurrentgemma's (G 16, D 256, window 2048) and
+internvl2's (G 2, D 128) shapes, and the engines' kernel-vs-plain greedy
+invariant (reduced recurrentgemma and internvl2 on all three engines
+too).
 
 Every test here needs an NVIDIA GPU and nvcc (a CUDA kernel has no CPU
 mode) and skips elsewhere.  The file imports neither jax nor ``repro``,
@@ -792,3 +795,94 @@ def test_mamba2_legacy_and_fixed_batch_kernel_equals_plain_greedy(cuda_device):
     for p, a in zip(prompts, streams[0]):
         np.testing.assert_array_equal(
             a, _greedy_oracle(model, cfg.vocab_size, p, 10, cuda_device))
+
+
+# ----------------------------------------------------------------------
+# the hybrid (recurrentgemma) and vlm (internvl2) families
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # sq, hq, hkv, d, window: recurrentgemma's prefill past its window,
+    # internvl2's 1,024 patches + 512 text tokens
+    (2304, 16, 1, 256, 2048), (2560, 16, 1, 256, 2048), (1536, 16, 8, 128, None),
+], ids=["rg-2304", "rg-2560", "internvl2-1536"])
+def test_flash_holds_family_prefill_to_f64_oracle(cuda_device, case):
+    sq, hq, hkv, d, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(28)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    q, k, v = mk(1, sq, hq, d), mk(1, sq, hkv, d), mk(1, sq, hkv, d)
+    out = flash.flash_attention_fwd(q, k, v, window=window)
+    plain = flash.flash_attention_plain(q, k, v, window=window)
+    assert (out.float() - plain.float()).abs().max() <= TOL[torch.bfloat16]
+    want = attn_ref.flash_ref(q, k, v, window=window)
+    assert attn_ref.check_ratio(out, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
+@pytest.mark.parametrize("case", [
+    # hq, hkv, d, starts, window: recurrentgemma's decode past its window,
+    # internvl2's slots after 1,024 patches
+    (16, 1, 256, [2047, 2048, 2300, 4000], 2048),
+    (16, 8, 128, [0, 17, 1300, 1543], None),
+], ids=["rg-G16-D256", "internvl2-G2-D128"])
+def test_decode_holds_family_slots_to_f64_oracle(cuda_device, case, kv_dtype):
+    """The plan's key splits and one forced split, each within the check
+    of the f64 oracle and within one bf16 ulp of each other."""
+    hq, hkv, d, starts, window = case
+    w = max(starts) // 16 + 2
+    q, kp, vp, bt, idx, _ = _case(cuda_device, torch.bfloat16, b=4, q_len=1,
+                                  starts=starts, lens=[1] * 4, hkv=hkv,
+                                  g=hq // hkv, d=d, w=w, nb=4 * w + 8)
+    sc = {}
+    if kv_dtype != "fp16":
+        kp, vp, sc = _quantize_pool(kp, vp, kv_dtype)
+    out = paged.paged_decode_fwd(q, kp, vp, bt, idx, window=window, **sc)
+    one = paged.paged_decode_fwd(q, kp, vp, bt, idx, window=window, splits=1,
+                                 **sc)
+    want = attn_ref.paged_attention_ref(q, kp, vp, bt, idx, window=window, **sc)
+    assert attn_ref.check_ratio(out, want) <= 1.0
+    assert attn_ref.check_ratio(one, want) <= 1.0
+    assert attn_ref.check_ratio(out, one, *attn_ref.SPLIT_CHECK) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["unified", "legacy", "static"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "internvl2-2b"])
+def test_family_engines_kernel_equals_plain_greedy(cuda_device, arch, engine):
+    """Reduced recurrentgemma (5 layers, window 16, prompts past it) and
+    internvl2 (8 patches a request) in float32: kernel_mode pallas (flash
+    prefill, decode kernel on the paged engines) and xla (plain path)
+    serve the same greedy streams."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, (n,)).astype(np.int32) for n in (7, 20, 33)]
+    kw = {"num_layers": 5} if arch == "recurrentgemma-9b" else {}
+    base = reduced(get_config(arch), **kw)
+    extras = [{"patch_embeds": rng.standard_normal(
+        (base.num_patches, base.vision_dim)).astype(np.float32)}
+        if base.family == "vlm" else {} for _ in prompts]
+    streams = []
+    for mode in ("pallas", "xla"):
+        cfg = base.replace(kernel_mode=mode)
+        model = build_model(cfg, device=cuda_device)
+        ops.reset_counts()
+        if engine == "static":
+            eng = ServeEngine(cfg, model, device=cuda_device, max_len=64)
+            out = [eng.generate(p[None], num_tokens=10, extras={
+                k: v[None] for k, v in e.items()})[0]
+                for p, e in zip(prompts, extras)]
+        else:
+            cls = UnifiedServeEngine if engine == "unified" \
+                else ContinuousServeEngine
+            eng = cls(cfg, model, device=cuda_device, num_slots=2, max_len=64)
+            reqs = [eng.submit(p, 10, extras=e) for p, e in zip(prompts, extras)]
+            res = eng.run()
+            out = [res[r.rid] for r in reqs]
+            assert (ops.paged_attention.launches > 0) == (mode == "pallas")
+        assert (ops.flash_attention.launches > 0) == (mode == "pallas")
+        streams.append(out)
+    for a, b in zip(*streams):
+        np.testing.assert_array_equal(a, b)

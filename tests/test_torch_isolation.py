@@ -1,9 +1,10 @@
-"""Torch port isolation: every ``repro_torch`` module imports (the ssm
-and moe models, the SSD scan package and the spec proposers included),
-and the reduced CPU engines serve (the legacy one traced into a ``.prv``;
-mamba2 unified and legacy; the n-gram and draft-model spec lanes;
-deepseek-moe unified with a fork and a beam search, and legacy with a
-session), in a
+"""Torch port isolation: every ``repro_torch`` module imports (the ssm,
+moe and RG-LRU models, the SSD scan package and the spec proposers
+included), and the reduced CPU engines serve (the legacy one traced into
+a ``.prv``; mamba2 unified and legacy; the n-gram and draft-model spec
+lanes; deepseek-moe unified with a fork and a beam search, and legacy
+with a session; recurrentgemma unified and legacy with a tail of rec
+layers; internvl2 unified and fixed-batch with patch embeddings), in a
 process where ``jax`` and ``repro`` cannot be imported at all; no port
 source names them."""
 from __future__ import annotations
@@ -82,6 +83,25 @@ moe_legacy = ContinuousServeEngine(moe.cfg, moe.model, device="cpu",
                                    num_slots=1, max_len=32)
 req = moe_legacy.submit(np.arange(9, dtype=np.int32), 5, session="s")
 assert len(moe_legacy.run()[req.rid]) == 5
+hyb = UnifiedServeEngine(reduced(get_config("recurrentgemma-9b"), num_layers=5),
+                         device="cpu", num_slots=2, max_len=48)
+req = hyb.submit(np.arange(20, dtype=np.int32), 5)
+assert len(hyb.run()[req.rid]) == 5 and not hyb.chunkable
+hyb_legacy = ContinuousServeEngine(hyb.cfg, hyb.model, device="cpu",
+                                   num_slots=1, max_len=48)
+req = hyb_legacy.submit(np.arange(20, dtype=np.int32), 5)
+assert len(hyb_legacy.run()[req.rid]) == 5
+from repro_torch.serve.engine import ServeEngine
+vlm = UnifiedServeEngine(reduced(get_config("internvl2-2b"), num_layers=1),
+                         device="cpu", num_slots=1, max_len=32)
+patches = np.ones((vlm.cfg.num_patches, vlm.cfg.vision_dim), np.float32)
+req = vlm.submit(np.arange(9, dtype=np.int32), 5,
+                 extras={"patch_embeds": patches})
+assert len(vlm.run()[req.rid]) == 5 and not req.extras
+static = ServeEngine(vlm.cfg, vlm.model, device="cpu", max_len=32)
+got = static.generate(np.arange(9, dtype=np.int32)[None], num_tokens=5,
+                      extras={"patch_embeds": patches[None]})
+assert got.shape == (1, 5)
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print("ok", len(mods))

@@ -136,8 +136,9 @@ def test_seeded_init_matches_decl_shapes_and_scales():
 
 
 def test_other_families_raise():
-    with pytest.raises(NotImplementedError, match="dense, moe and ssm"):
-        build_model(reduced(get_config("recurrentgemma-9b")), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="dense, moe, ssm, hybrid and vlm"):
+        build_model(reduced(get_config("whisper-small")), device="cpu")
 
 
 def test_build_model_defaults_to_cuda():
