@@ -168,16 +168,23 @@ Phases (each prints its own lines; any failure exits non-zero):
       four of 200-512, 32 new tokens, 4 slots, the prefix cache requested
       and kept off by the family gate: flash and decode launched, no
       span and no plain call, 12,288 pool bytes a token, budget triples
-      as in (f), first tokens within ``FIRST_TOKEN_TOL`` and every
-      committed token within ``SPEC_ORACLE_MARGIN`` of ``forward()``, the
-      kernel path held to the plain one on one batch (4 x 2112 tokens, 32
-      decode steps), a profiled window with the RG-LRU's ops named;
-   p. the same model through the unified engine on an int8 pool (6,240
-      B/token), the grouped-prefill engine (a B 2 group of two 2304-token
-      prompts, then (o)'s stream) and the fixed-batch engine (4 x 2304
-      tokens over window rings; its decode is the naive one-query path,
-      as in the JAX package), each with (o)'s checks and its token
-      agreement with (o);
+      as in (f); a profiled window with the RG-LRU's ops named serves the
+      model as configured, and every checked wave its pre-cap view (the
+      softcap lifted: random weights saturate it), first and committed
+      tokens within ``HYBRID_REL_MARGIN`` logit RMS of that view's
+      ``forward()`` (every greedy token repeats the fed one: its own logit
+      leads with random tied embeddings), the kernel path held to the
+      plain one on one batch with that column out (4 x 2112 tokens, 32
+      decode steps; the runner-up, max |d logit| within
+      ``HYBRID_REL_DIFF`` RMS);
+   p. the same view through the unified engine on an int8 pool (6,240
+      B/token), the grouped-prefill engine (a B 2 group's RG-LRU state at
+      each slot against the solo prefill; two B 2 groups of 2304-token
+      prompts, then (o)'s stream) and the fixed-batch engine (the same
+      four 2304-token prompts over window rings; its decode is the naive
+      one-query path, as in the JAX package), each with (o)'s checks; the
+      paged engines' token agreement with (o) and the fixed batch's with
+      the grouped-prefill engine;
    q. full-width internvl2-2b (24 layers, d_model 2048, 16 / 8 heads of
       128, 1.892B random weights; 1,024 seeded patch embeddings of width
       1,024 a request) on (a)'s stream shape through the unified and
@@ -204,6 +211,7 @@ It needs only the repository: weights and inputs are made from seeds.
 """
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import math
@@ -245,6 +253,24 @@ SPEC_ORACLE_MARGIN = {"fp16": 0.25, "int8": 1.0}
 # the drop-free engine's first tokens below forward()'s argmax
 MOE_MARGIN = 0.5
 MOE_DROP_FREE_CF = 11.0  # >= E / k = 64 / 6: no slot is ever dropped
+# recurrentgemma-9b on random weights: its pre-cap logits have an RMS of
+# ~64 (a final hidden state of norm ~64 against unit-normal tied
+# embedding rows), so its 30 tanh(x / 30) softcap rounds every logit
+# above ~270 to exactly 30.0 in f32, and a greedy choice among those
+# ties checks nothing.  Waves (o) and (p) serve and check the logits
+# before the cap (``precap_view``), in units of each row's logit RMS.
+# Each limit is 2.5x the worst reading of a chip run (PERF.md), on one
+# batch with the fed token's column out (its own logit, tens of RMS, is
+# every argmax): the gap of the kernel path's runner-up below the plain
+# path's, and max |d logit|.  The margin also bounds every served
+# token's gap below forward()'s argmax; those gaps read 0 (the fed token
+# leads), and int8's, read only there, keeps its first value
+HYBRID_REL_MARGIN = {"fp16": 0.078, "int8": 0.2}
+HYBRID_REL_DIFF = 0.098
+# the RG-LRU state a B 2 prefill group leaves at each slot against the
+# prompt's solo prefill, |a - b| / |b| per leaf: two rows' states swapped
+# or mixed read ~1.4, batch rounding ~1e-2 (fixed before the first run)
+HYBRID_STATE_REL = 0.1
 CSRC = "src/repro_torch/kernels/attention/csrc/"
 KERNELS = ("paged_decode", "paged_span", "paged_decode_quant",
            "paged_span_quant", "flash_attention", "ssd_scan")
@@ -1170,21 +1196,31 @@ def _patches_of(torch, patches, i):
     return torch.as_tensor(patches[i], device="cuda")[None]
 
 
+def _logit_scale(lg, rel):
+    """Per-row unit of a logit gap: the row's logit RMS when ``rel``,
+    else 1."""
+    return lg.float().pow(2).mean(-1).sqrt() if rel else lg.new_ones(
+        lg.shape[:-1])
+
+
 def check_first_tokens(torch, model, cfg, prompts, firsts, what,
-                       tol=FIRST_TOKEN_TOL["fp16"], patches=None):
+                       tol=FIRST_TOKEN_TOL["fp16"], patches=None, rel=False):
     """Each request's first token must be the argmax of the plain
     full-sequence ``forward()`` on its prompt (after its ``patches`` for a
     vlm) up to ``tol`` (bf16 noise, plus the pool's quantization error for
-    an int8/fp8 pool)."""
+    an int8/fp8 pool); with ``rel``, ``tol`` is in units of the row's
+    logit RMS."""
     worst = 0.0
     with torch.inference_mode():
         for i, (p, first) in enumerate(zip(prompts, firsts)):
             logits = model(torch.tensor(p, device="cuda")[None],
                            _patches_of(torch, patches, i))[0, -1, :cfg.vocab_size]
             require(torch.isfinite(logits).all().item(), "non-finite logits")
-            worst = max(worst, (logits.max() - logits[int(first)]).item())
+            worst = max(worst, ((logits.max() - logits[int(first)])
+                                / _logit_scale(logits, rel)).item())
     print(f"[smoke] {what} vs forward(): logits finite; first tokens within "
-          f"{worst:.4f} of the forward argmax logit (tol {tol})")
+          f"{worst:.4f}{' logit RMS' if rel else ''} of the forward argmax "
+          f"logit (tol {tol})")
     require(worst <= tol, f"{what}: first token {worst} below the argmax")
 
 
@@ -1194,6 +1230,55 @@ def served(out, reqs, gen, vocab):
         require(toks is not None and len(toks) == gen,
                 f"request {r.rid} returned {None if toks is None else len(toks)}")
         require(((toks >= 0) & (toks < vocab)).all(), "token out of vocab")
+
+
+def _attention_counts():
+    """The attention wrappers' launch counters and the plain versions'
+    calls (their sum under "plain"), read now."""
+    from repro_torch.kernels.attention import flash, ops, paged
+
+    return {"flash_attention": ops.flash_attention.launches,
+            "paged_decode": ops.paged_attention.launches,
+            "paged_decode_quant": ops.paged_attention.quant_launches,
+            "paged_span": (ops.paged_span_attention.launches
+                           + ops.paged_span_attention.quant_launches),
+            "plain": (paged.paged_decode_plain.calls
+                      + paged.paged_span_plain.calls
+                      + flash.flash_attention_plain.calls)}
+
+
+def _merged_trace(tracer, base):
+    """Finish ``tracer``, merge its flushed segments into one ``.prv`` at
+    ``base`` and parse it back: (trace, TTFT/TPOT summary, segments,
+    .prv bytes)."""
+    from repro_torch import core as xtrace
+
+    segments = list(tracer.segments)
+    paths = xtrace.write_prv(tracer.finish(), base, segments=segments)
+    trace = xtrace.parse_prv(paths["prv"])
+    return (trace, xtrace.serve_latency_summary(trace), len(segments),
+            paths["prv"].stat().st_size)
+
+
+def check_budget_triples(np, trace, prompt_tokens, what):
+    """Every EV_STEP_BUDGET sample equals EV_CHUNK_TOKENS +
+    EV_DECODE_TOKENS and the chunk tokens sum to the prompts' (whole
+    prompts, patches included, folded into the next triple)."""
+    from repro_torch.core import events as ev
+
+    evs = trace.events
+    by = {c: evs[evs["type"] == c]["value"].astype(np.int64) for c in (
+        ev.EV_STEP_BUDGET, ev.EV_CHUNK_TOKENS, ev.EV_DECODE_TOKENS)}
+    n = len(by[ev.EV_STEP_BUDGET])
+    require(n > 0 and all(len(v) == n for v in by.values()),
+            f"{what}: counter triples incomplete {[len(v) for v in by.values()]}")
+    require((by[ev.EV_STEP_BUDGET] == by[ev.EV_CHUNK_TOKENS]
+             + by[ev.EV_DECODE_TOKENS]).all(),
+            f"{what}: EV_STEP_BUDGET != EV_CHUNK_TOKENS + EV_DECODE_TOKENS")
+    chunk = int(by[ev.EV_CHUNK_TOKENS].sum())
+    require(chunk == prompt_tokens,
+            f"{what}: chunk tokens {chunk} != prompt tokens {prompt_tokens}")
+    return n
 
 
 def full_width_phase(torch, np):
@@ -1237,7 +1322,7 @@ def full_width_phase(torch, np):
 
 
 def unified_wave(torch, np, cfg, model):
-    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.kernels.attention import ops
     from repro_torch.serve.step import UnifiedServeEngine
 
     gen, bs = 32, 16
@@ -1258,8 +1343,7 @@ def unified_wave(torch, np, cfg, model):
     seconds = time.perf_counter() - t0
     launches = {"paged_decode": ops.paged_attention.launches,
                 "paged_span": ops.paged_span_attention.launches}
-    plain = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
-             + flash.flash_attention_plain.calls)
+    plain = _attention_counts()["plain"]
     served(out, reqs, gen, cfg.vocab_size)
     st = eng.stats
     tokens = st["tokens_decoded"] - stats0["tokens_decoded"]
@@ -1287,7 +1371,7 @@ def legacy_wave(torch, np, cfg, model):
     """The grouped-prefill engine on the same stream, traced: segments
     flushed mid-run, merged into one ``.prv`` and parsed back."""
     from repro_torch import core as xtrace
-    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.kernels.attention import ops
     from repro_torch.serve.engine import ContinuousServeEngine
 
     gen, bs = 32, 16
@@ -1316,13 +1400,8 @@ def legacy_wave(torch, np, cfg, model):
         launches = {"flash_attention": ops.flash_attention.launches,
                     "paged_decode": ops.paged_attention.launches,
                     "paged_span": ops.paged_span_attention.launches}
-        plain = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
-                 + flash.flash_attention_plain.calls)
-        segments = list(tracer.segments)
-        paths = xtrace.write_prv(tracer.finish(), base, segments=segments)
-        trace = xtrace.parse_prv(paths["prv"])
-        lat = xtrace.serve_latency_summary(trace)
-        prv_bytes = paths["prv"].stat().st_size
+        plain = _attention_counts()["plain"]
+        trace, lat, n_seg, prv_bytes = _merged_trace(tracer, base)
     served(out, reqs, gen, cfg.vocab_size)
     st = eng.stats
     tokens = st["tokens_decoded"]
@@ -1340,12 +1419,12 @@ def legacy_wave(torch, np, cfg, model):
     require(plain == 0, f"plain path ran {plain} times on the legacy path")
     require(st["prefix_hit_tokens"] > 0, "no prefix hits on the legacy path")
     t, o = lat["ttft_us"], lat["tpot_us"]
-    print(f"[smoke] legacy trace: {len(segments)} flushed segments merged into "
+    print(f"[smoke] legacy trace: {n_seg} flushed segments merged into "
           f"one .prv ({prv_bytes} bytes; {trace.summary()}); TTFT p50 "
           f"{t['p50']:.0f}us / p95 {t['p95']:.0f}us; TPOT p50 {o['p50']:.0f}us "
           f"/ p95 {o['p95']:.0f}us over {t['count']} requests; device idle "
           f"{idle if idle is None else f'{idle:.1%}'} (profiled wave)")
-    require(len(segments) > 0, "no trace segment was flushed")
+    require(n_seg > 0, "no trace segment was flushed")
     require(t["count"] == len(reqs) and o["count"] == len(reqs),
             f"trace holds {t['count']}/{o['count']} latencies, not {len(reqs)}")
     check_first_tokens(torch, model, cfg, prompts,
@@ -1364,7 +1443,7 @@ def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
     and read just after; ``ref`` is the bf16 wave's greedy streams of the
     same engine.  Each wave then runs one profiled window.  Returns the
     quantized launch counts."""
-    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.kernels.attention import ops
     from repro_torch.serve.engine import ContinuousServeEngine
     from repro_torch.serve.step import UnifiedServeEngine
 
@@ -1392,8 +1471,7 @@ def quant_wave(torch, np, cfg, model, kind, kv_dtype, ref):
                 "paged_span_quant": ops.paged_span_attention.quant_launches,
                 "flash_attention": ops.flash_attention.launches}
     native = ops.paged_attention.launches + ops.paged_span_attention.launches
-    plain = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
-             + flash.flash_attention_plain.calls)
+    plain = _attention_counts()["plain"]
     served(out, reqs, gen, cfg.vocab_size)
     st = eng.stats
     tokens = st["tokens_decoded"] - stats0["tokens_decoded"]
@@ -1439,7 +1517,7 @@ def fork_wave(torch, np, cfg, model, kv_dtype, ref):
     parents take slots 0 and 1 at the first dispatch in both runs (a later
     parent's slot depends on where the siblings sit).  Prints the pool's
     forks, CoW copies and peak shared blocks."""
-    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.kernels.attention import ops
     from repro_torch.serve.step import UnifiedServeEngine
 
     gen, bs, n = 32, 16, 3
@@ -1469,8 +1547,7 @@ def fork_wave(torch, np, cfg, model, kv_dtype, ref):
     count = "launches" if kv_dtype == "fp16" else "quant_launches"
     launches = {w: getattr(getattr(ops, w), count)
                 for w in ("paged_attention", "paged_span_attention")}
-    plain = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
-             + flash.flash_attention_plain.calls)
+    plain = _attention_counts()["plain"]
     st = eng.throughput_stats()
     forks = st["forks"] - stats0["forks"]
     cows = st["cow_copies"] - stats0["cow_copies"]
@@ -1526,7 +1603,7 @@ def beam_session_wave(torch, np, cfg, model):
     the pin."""
     from repro_torch import core as xtrace
     from repro_torch.core import events as ev
-    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.kernels.attention import ops
     from repro_torch.serve.step import UnifiedServeEngine
 
     gen, bs, w = 32, 16, 4
@@ -1552,8 +1629,7 @@ def beam_session_wave(torch, np, cfg, model):
         seconds = time.perf_counter() - t0
         launches = {"paged_decode": ops.paged_attention.launches,
                     "paged_span": ops.paged_span_attention.launches}
-        plain = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
-                 + flash.flash_attention_plain.calls)
+        plain = _attention_counts()["plain"]
         forks = pool.stats["forks"] - forks0
         cows = pool.stats["cow_copies"] - cows0
         active1 = pool.num_active()
@@ -1564,16 +1640,14 @@ def beam_session_wave(torch, np, cfg, model):
         t2 = eng.submit(np.concatenate([ctx1, follow]), gen, session="chat")
         eng.run()
         released = eng.close_session("chat")
-        segments = list(tracer.segments)
-        paths = xtrace.write_prv(tracer.finish(), base, segments=segments)
-        trace = xtrace.parse_prv(paths["prv"])
+        trace, _, n_seg, _ = _merged_trace(tracer, base)
     n_fork_ev = int((trace.events["type"] == ev.EV_FORK).sum())
     scores = [sc for _, sc in beams]
     print(f"[smoke] beam wave (l): width {w} x {gen} tokens on a 512-token "
           f"prompt in {seconds:.2f}s; scores best-first {[round(x, 3) for x in scores]}; "
           f"pool forks {forks} ({forks - (w - 1)} reseats), CoW copies "
           f"{cows}, active blocks {active0} -> {active1}; EV_FORK in the "
-          f"merged .prv ({len(segments)} segments) {n_fork_ev}; kernel "
+          f"merged .prv ({n_seg} segments) {n_fork_ev}; kernel "
           f"launches {launches}, plain-path calls {plain}")
     require(len(beams) == w and all(math.isfinite(x) for x in scores)
             and scores == sorted(scores, reverse=True),
@@ -1643,7 +1717,7 @@ def moe_kernel_vs_plain(torch, np, model, cfg, prompts, gen=32, length=128):
     path's logit of that token lies within ``MOE_MARGIN`` of its own
     argmax, and is its argmax wherever its top-2 margin exceeds
     ``MOE_MARGIN``."""
-    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.kernels.attention import ops
 
     b, bs = len(prompts), 16
     w = (length + gen) // bs + 1
@@ -1685,8 +1759,7 @@ def moe_kernel_vs_plain(torch, np, model, cfg, prompts, gen=32, length=128):
                                           tables)[:, :v] for m in views}
     launches = {"paged_decode": ops.paged_attention.launches,
                 "paged_span": ops.paged_span_attention.launches}
-    plain = paged.paged_decode_plain.calls + paged.paged_span_plain.calls \
-        + flash.flash_attention_plain.calls
+    plain = _attention_counts()["plain"]
     print(f"[smoke] moe wave (m) kernel vs plain on one batch ({b} rows x "
           f"{length} prompt tokens, {gen} decode steps, cf "
           f"{cfg.capacity_factor}): plain logits at the kernel path's tokens "
@@ -1708,16 +1781,12 @@ def moe_engine_waves(torch, np, model, cfg, prompts):
     pallas streams is printed: at cf 1.25 a flipped token changes later
     drops), then through the grouped-prefill engine (the flash and decode
     kernels launched)."""
-    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.kernels.attention import ops
     from repro_torch.serve.engine import ContinuousServeEngine
     from repro_torch.serve.step import UnifiedServeEngine
 
     gen, bs = 32, 16
     streams = {}
-
-    def plain_calls():
-        return (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
-                + flash.flash_attention_plain.calls)
 
     for label, make in (
             ("unified pallas", lambda: UnifiedServeEngine(
@@ -1735,7 +1804,7 @@ def moe_engine_waves(torch, np, model, cfg, prompts):
         require(len(warm.tokens) == 2, f"moe {label}: warm-up unfinished")
         stats0 = dict(eng.stats)
         ops.reset_counts()
-        plain0 = plain_calls()
+        plain0 = _attention_counts()["plain"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reqs = [eng.submit(p, gen) for p in prompts]
@@ -1747,7 +1816,7 @@ def moe_engine_waves(torch, np, model, cfg, prompts):
         launches = {"flash_attention": ops.flash_attention.launches,
                     "paged_decode": ops.paged_attention.launches,
                     "paged_span": ops.paged_span_attention.launches}
-        plain = plain_calls() - plain0
+        plain = _attention_counts()["plain"] - plain0
         tokens = eng.stats["tokens_decoded"] - stats0["tokens_decoded"]
         ttft = np.percentile([r.ttft_ns() / 1e6 for r in reqs], [50, 95])
         tpot = np.percentile([r.tpot_ns() / 1e6 for r in reqs], [50, 95])
@@ -1817,8 +1886,6 @@ def mamba2_wave(torch, np):
     model.  Returns the SSD kernel's launches of wave (f)."""
     from repro_torch import core as xtrace
     from repro_torch.configs import get_config
-    from repro_torch.core import events as ev
-    from repro_torch.kernels.attention import flash, paged
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import scan as ssd_scan
     from repro_torch.models.model import build_model
@@ -1853,8 +1920,7 @@ def mamba2_wave(torch, np):
         state_bytes = sum(t.numel() * t.element_size()
                           for t in eng._caches.values()) // eng.num_slots
         ssd_ops.reset_counts()
-        plain0 = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
-                  + flash.flash_attention_plain.calls)
+        plain0 = _attention_counts()["plain"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reqs = [eng.submit(p, gen) for p in prompts]
@@ -1863,12 +1929,8 @@ def mamba2_wave(torch, np):
         seconds = time.perf_counter() - t0
         launches = ssd_ops.ssd_scan.launches
         plain = ssd_scan.ssd_chunked_plain.calls
-        plain_attn = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
-                      + flash.flash_attention_plain.calls) - plain0
-        segments = list(tracer.segments)
-        paths = xtrace.write_prv(tracer.finish(), base, segments=segments)
-        trace = xtrace.parse_prv(paths["prv"])
-        lat = xtrace.serve_latency_summary(trace)
+        plain_attn = _attention_counts()["plain"] - plain0
+        trace, lat, n_seg, _ = _merged_trace(tracer, base)
     served(out, reqs, gen, cfg.vocab_size)
     st = eng.stats
     tokens = st["tokens_decoded"]
@@ -1885,27 +1947,16 @@ def mamba2_wave(torch, np):
     require(launches > 0, "the SSD scan kernel never launched on wave (f)")
     require(plain == 0 and plain_attn == 0,
             f"plain path ran on wave (f): {plain} SSD, {plain_attn} attention")
-    evs = trace.events
-    by = {c: evs[evs["type"] == c]["value"].astype(np.int64) for c in (
-        ev.EV_STEP_BUDGET, ev.EV_CHUNK_TOKENS, ev.EV_DECODE_TOKENS)}
-    n_budget = len(by[ev.EV_STEP_BUDGET])
-    require(n_budget > 0 and all(len(v) == n_budget for v in by.values()),
-            f"counter triples incomplete: {[len(v) for v in by.values()]}")
-    require((by[ev.EV_STEP_BUDGET] == by[ev.EV_CHUNK_TOKENS]
-             + by[ev.EV_DECODE_TOKENS]).all(),
-            "EV_STEP_BUDGET != EV_CHUNK_TOKENS + EV_DECODE_TOKENS at a sample")
-    require(int(by[ev.EV_CHUNK_TOKENS].sum()) == sum(lens),
-            f"chunk tokens {int(by[ev.EV_CHUNK_TOKENS].sum())} != prompt "
-            f"tokens {sum(lens)}")
+    n_budget = check_budget_triples(np, trace, sum(lens), "wave (f)")
     t, o = lat["ttft_us"], lat["tpot_us"]
-    print(f"[smoke] mamba2 trace: {len(segments)} flushed segments merged into "
+    print(f"[smoke] mamba2 trace: {n_seg} flushed segments merged into "
           f"one .prv ({trace.summary()}); {n_budget} counter triples, "
           f"EV_STEP_BUDGET = EV_CHUNK_TOKENS + EV_DECODE_TOKENS at every "
           f"sample, chunk tokens = the {sum(lens)} prompt tokens; TTFT p50 "
           f"{t['p50']:.0f}us / p95 {t['p95']:.0f}us; TPOT p50 {o['p50']:.0f}us "
           f"/ p95 {o['p95']:.0f}us over {t['count']} requests; device idle "
           f"{idle if idle is None else f'{idle:.1%}'} (profiled wave)")
-    require(len(segments) > 0, "no trace segment was flushed")
+    require(n_seg > 0, "no trace segment was flushed")
     require(t["count"] == len(reqs), f"trace holds {t['count']} latencies")
     check_first_tokens(torch, model.serving_view(cfg.replace(kernel_mode="xla")),
                        cfg, prompts, [out[r.rid][0] for r in reqs],
@@ -1934,13 +1985,14 @@ def spec_stream(rng, np, vocab, n):
 
 
 def oracle_check(torch, np, model, cfg, prompts, streams, what, margin,
-                 patches=None):
+                 patches=None, rel=False):
     """Greedy full recompute over the COMMITTED context: one ``forward()``
     of each prompt plus its committed tokens (after its ``patches`` for a
     vlm) gives the logits after every prefix.  Every committed token's
     logit must lie within ``margin`` of the argmax logit there, and
     wherever the top-2 margin exceeds ``margin`` (stated before the first
-    card run) it must be the argmax.
+    card run) it must be the argmax; with ``rel`` both are in units of
+    the row's logit RMS.
     Returns (steps held to the argmax, steps under the margin)."""
     checked = under = 0
     worst = 0.0
@@ -1953,6 +2005,7 @@ def oracle_check(torch, np, model, cfg, prompts, streams, what, margin,
             lg = model(torch.tensor(ctx, device="cuda")[None], pe)[
                 0, off + len(p) - 1:, :cfg.vocab_size].float()
             require(torch.isfinite(lg).all().item(), f"{what}: non-finite logits")
+            lg = lg / _logit_scale(lg, rel)[:, None]
             top2 = lg.topk(2, dim=-1).values
             got = lg.gather(1, torch.as_tensor(toks, device="cuda").long()[:, None])
             gap = (top2[:, 0] - got[:, 0]).cpu().numpy()
@@ -1969,10 +2022,11 @@ def oracle_check(torch, np, model, cfg, prompts, streams, what, margin,
                     f"top-2 margin above {margin}")
             checked += int(sure.sum())
             under += int((~sure).sum())
+    unit = " logit RMS" if rel else ""
     print(f"[smoke] {what} vs forward() over the committed context: all "
-          f"{checked + under} committed tokens within {worst:.4f} of the "
-          f"argmax logit (tol {margin}); {checked} steps with a top-2 margin "
-          f"> {margin} all the argmax, {under} under it")
+          f"{checked + under} committed tokens within {worst:.4f}{unit} of "
+          f"the argmax logit (tol {margin}); {checked} steps with a top-2 "
+          f"margin > {margin}{unit} all the argmax, {under} under it")
     return checked, under
 
 
@@ -2018,7 +2072,7 @@ def spec_wave(torch, np, cfg, model, label, kind, kv_dtype, n_req, ref=None):
     the first position where the two part.  Returns those streams."""
     from repro_torch import core as xtrace
     from repro_torch.core import events as ev
-    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.kernels.attention import ops
     from repro_torch.serve.spec import make_proposer
     from repro_torch.serve.step import UnifiedServeEngine
 
@@ -2054,11 +2108,9 @@ def spec_wave(torch, np, cfg, model, label, kind, kv_dtype, n_req, ref=None):
         other_span = w.quant_launches if kv_dtype == "fp16" else w.launches
         decode = ops.paged_attention.launches + ops.paged_attention.quant_launches
         draft_flash = ops.flash_attention.launches
-        plain = (paged.paged_decode_plain.calls + paged.paged_span_plain.calls
-                 + flash.flash_attention_plain.calls)
-        segments = list(tracer.segments)
-        paths = xtrace.write_prv(tracer.finish(), base, segments=segments)
-        evs = xtrace.parse_prv(paths["prv"]).events
+        plain = _attention_counts()["plain"]
+        trace, _, n_seg, _ = _merged_trace(tracer, base)
+        evs = trace.events
         sums = {c: int(evs[evs["type"] == c]["value"].astype(np.int64).sum())
                 for c in (ev.EV_SPEC_DRAFTED, ev.EV_SPEC_ACCEPTED)}
         n_disp = int((evs["type"] == ev.EV_SPEC_K).sum())
@@ -2079,7 +2131,7 @@ def spec_wave(torch, np, cfg, model, label, kind, kv_dtype, n_req, ref=None):
     print(f"[smoke] {what} kernel launches: span {span}, other span body "
           f"{other_span}, decode {decode}, flash (draft prefill) {draft_flash}; "
           f"plain-path calls {plain}; engine dispatch counts "
-          f"{st['kernel_dispatch']}; merged .prv: {len(segments)} segments, "
+          f"{st['kernel_dispatch']}; merged .prv: {n_seg} segments, "
           f"EV_SPEC_K x{n_disp}, EV_SPEC_DRAFTED sum "
           f"{sums[ev.EV_SPEC_DRAFTED]}, EV_SPEC_ACCEPTED sum "
           f"{sums[ev.EV_SPEC_ACCEPTED]}")
@@ -2115,7 +2167,6 @@ def mamba2_engine_waves(torch, np, cfg, model, prompts, unified_out):
     prefill launch per layer); counts zeroed just before each and read
     just after; tokens held to forward() over the committed context
     (kernel_mode xla)."""
-    from repro_torch.kernels.attention import flash, paged
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import scan as ssd_scan
     from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine
@@ -2125,8 +2176,7 @@ def mamba2_engine_waves(torch, np, cfg, model, prompts, unified_out):
 
     def counts():
         return (ssd_ops.ssd_scan.launches, ssd_scan.ssd_chunked_plain.calls,
-                paged.paged_decode_plain.calls + paged.paged_span_plain.calls
-                + flash.flash_attention_plain.calls)
+                _attention_counts()["plain"])
 
     eng = ContinuousServeEngine(cfg, model, device="cuda", num_slots=4,
                                 max_len=512 + gen, max_prefills_per_iter=4)
@@ -2400,49 +2450,6 @@ def hybrid_stream(rng, np, vocab):
     return lens, [rng.integers(0, vocab, (n,)).astype(np.int32) for n in lens]
 
 
-def _attention_counts():
-    from repro_torch.kernels.attention import flash, ops, paged
-
-    return {"flash_attention": ops.flash_attention.launches,
-            "paged_decode": ops.paged_attention.launches,
-            "paged_decode_quant": ops.paged_attention.quant_launches,
-            "paged_span": (ops.paged_span_attention.launches
-                           + ops.paged_span_attention.quant_launches),
-            "plain": (paged.paged_decode_plain.calls
-                      + paged.paged_span_plain.calls
-                      + flash.flash_attention_plain.calls)}
-
-
-def _merged_trace(tracer, base):
-    from repro_torch import core as xtrace
-
-    segments = list(tracer.segments)
-    paths = xtrace.write_prv(tracer.finish(), base, segments=segments)
-    trace = xtrace.parse_prv(paths["prv"])
-    return trace, xtrace.serve_latency_summary(trace), len(segments)
-
-
-def check_budget_triples(np, trace, prompt_tokens, what):
-    """Every EV_STEP_BUDGET sample equals EV_CHUNK_TOKENS +
-    EV_DECODE_TOKENS and the chunk tokens sum to the prompts' (whole
-    prompts, patches included, folded into the next triple)."""
-    from repro_torch.core import events as ev
-
-    evs = trace.events
-    by = {c: evs[evs["type"] == c]["value"].astype(np.int64) for c in (
-        ev.EV_STEP_BUDGET, ev.EV_CHUNK_TOKENS, ev.EV_DECODE_TOKENS)}
-    n = len(by[ev.EV_STEP_BUDGET])
-    require(n > 0 and all(len(v) == n for v in by.values()),
-            f"{what}: counter triples incomplete {[len(v) for v in by.values()]}")
-    require((by[ev.EV_STEP_BUDGET] == by[ev.EV_CHUNK_TOKENS]
-             + by[ev.EV_DECODE_TOKENS]).all(),
-            f"{what}: EV_STEP_BUDGET != EV_CHUNK_TOKENS + EV_DECODE_TOKENS")
-    chunk = int(by[ev.EV_CHUNK_TOKENS].sum())
-    require(chunk == prompt_tokens,
-            f"{what}: chunk tokens {chunk} != prompt tokens {prompt_tokens}")
-    return n
-
-
 def rglru_timing(torch, model, cfg):
     """Device time of one rec layer's RG-LRU at the wave's shapes: the
     chunked scan over a 2304-token prompt (B 1) and the decode step over
@@ -2471,11 +2478,22 @@ def rglru_timing(torch, model, cfg):
     return scan, step
 
 
+def precap_view(model):
+    """``model`` with its final ``c tanh(x / c)`` logit softcap lifted: a
+    shallow copy sharing every parameter and kernel, whose logits are
+    those before the cap.  The cap is monotone, so greedy choice is the
+    same in exact arithmetic (see ``HYBRID_REL_MARGIN``)."""
+    view = copy.copy(model)
+    view.cfg = model.cfg.replace(logit_softcap=None)
+    return view
+
+
 def hybrid_phase(torch, np):
     """Waves (o) and (p): full-width recurrentgemma-9b (38 layers: 12 x
     (rec, rec, attn) + 2 rec, d_model 4096, MQA 16 / 1 heads of 256, local
-    window 2048, bf16, ~8.58B random weights from a seed).  The model is
-    freed before it returns."""
+    window 2048, bf16, ~8.58B random weights from a seed).  (o)'s profiled
+    window serves the model as configured; every checked wave serves its
+    ``precap_view``.  The model is freed before it returns."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
@@ -2496,9 +2514,9 @@ def hybrid_phase(torch, np):
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     lens, prompts = hybrid_stream(np.random.default_rng(1), np, cfg.vocab_size)
     rglru_timing(torch, model, cfg)
-    ref = hybrid_unified_wave(torch, np, cfg, model, lens, prompts)
-    hybrid_kernel_vs_plain(torch, np, model, cfg, prompts[:4])
-    hybrid_more_engines(torch, np, cfg, model, prompts, ref)
+    ref = hybrid_unified_wave(torch, np, model, lens, prompts)
+    hybrid_kernel_vs_plain(torch, np, precap_view(model), prompts[:4])
+    hybrid_more_engines(torch, np, precap_view(model), prompts, ref)
     print(f"[smoke] recurrentgemma-9b peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     del model
@@ -2506,16 +2524,18 @@ def hybrid_phase(torch, np):
     torch.cuda.empty_cache()
 
 
-def hybrid_unified_wave(torch, np, cfg, model, lens, prompts):
+def hybrid_unified_wave(torch, np, model, lens, prompts):
     """Wave (o): the unified engine, bf16 pool, 4 slots, prefix cache
-    requested (the family gate keeps it off), traced: segments flushed
-    and merged into one ``.prv``; a profiled window first (also the
-    warm-up) with the RG-LRU's ops named.  Returns the streams."""
+    requested (the family gate keeps it off); a profiled window first
+    (also the warm-up) with the RG-LRU's ops named, serving ``model`` as
+    configured; then the stream, traced (segments flushed and merged into
+    one ``.prv``), on the pre-cap view, its tokens held to that view's
+    ``forward()`` under ``HYBRID_REL_MARGIN``.  Returns the streams."""
     from repro_torch import core as xtrace
     from repro_torch.kernels.attention import ops
     from repro_torch.serve.step import UnifiedServeEngine
 
-    gen = 32
+    gen, cfg = 32, model.cfg
     kw = dict(device="cuda", num_slots=4, max_len=max(lens) + gen,
               block_size=16, prefix_cache=True)
     eng = UnifiedServeEngine(cfg, model, **kw)
@@ -2532,6 +2552,8 @@ def hybrid_unified_wave(torch, np, cfg, model, lens, prompts):
                                         "reduce", "masked_fill", "exp"),
                                     "conv1d": ("conv",)})
     del eng
+    model = precap_view(model)
+    cfg = model.cfg
     with tempfile.TemporaryDirectory() as tmp:
         base = pathlib.Path(tmp) / "serve"
         tracer = xtrace.Tracer("chip-smoke-hybrid").init()
@@ -2545,7 +2567,7 @@ def hybrid_unified_wave(torch, np, cfg, model, lens, prompts):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         c = _attention_counts()
-        trace, lat, n_seg = _merged_trace(tracer, base)
+        trace, lat, n_seg, _ = _merged_trace(tracer, base)
     served(out, reqs, gen, cfg.vocab_size)
     st = eng.stats
     tokens = st["tokens_decoded"]
@@ -2578,27 +2600,45 @@ def hybrid_unified_wave(torch, np, cfg, model, lens, prompts):
     require(n_seg > 0 and t["count"] == len(reqs),
             f"wave (o): {n_seg} segments, {t['count']} latencies")
     streams = [out[r.rid] for r in reqs]
+    rep = np.mean([(t == p[-1]).mean() for t, p in zip(streams, prompts)])
+    print(f"[smoke] recurrentgemma (o): {rep:.3f} of the committed tokens "
+          f"repeat their prompt's last token (random tied embeddings: the fed "
+          f"token's own logit is the argmax), so the token checks below see "
+          f"little more; the kernel-vs-plain batch compares the rest")
     check_first_tokens(torch, model, cfg, prompts, [s[0] for s in streams],
-                       "recurrentgemma unified (o)")
+                       "recurrentgemma unified (o), pre-cap",
+                       tol=HYBRID_REL_MARGIN["fp16"], rel=True)
     oracle_check(torch, np, model, cfg, prompts, streams,
-                 "recurrentgemma unified (o)", SPEC_ORACLE_MARGIN["fp16"])
+                 "recurrentgemma unified (o), pre-cap",
+                 HYBRID_REL_MARGIN["fp16"], rel=True)
     del eng
     torch.cuda.empty_cache()
     return streams
 
 
-def hybrid_kernel_vs_plain(torch, np, model, cfg, prompts, gen=32, length=2112):
-    """Wave (o), the kernel path held to the plain path on one batch: four
-    rows of 2112 tokens prefilled under kernel_mode pallas (flash) and xla
-    (its plain version), written into a paged pool as the engine writes
-    them, then ``gen`` decode steps (positions 2112 on, past the window)
-    through kernel 1 and its plain version, each step fed the pallas
-    argmax: the plain logit of that token within
-    ``SPEC_ORACLE_MARGIN["fp16"]`` of the plain argmax, and the argmax
-    wherever the plain top-2 margin exceeds it."""
+def hybrid_kernel_vs_plain(torch, np, model, prompts, gen=32, length=2112):
+    """Wave (o), the kernel path held to the plain path on one batch, both
+    on the pre-cap view ``model``: four rows of 2112 tokens prefilled
+    under kernel_mode pallas (flash) and xla (its plain version), written
+    into a paged pool as the engine writes them, then ``gen`` decode
+    steps (positions 2112 on, past the window) through kernel 1 and its
+    plain version, each step fed the pallas argmax.  With random tied
+    embeddings the fed token's own logit (its embedding still leads the
+    final hidden state; tens of logit RMS) is every argmax, so the
+    logits are compared with that column taken out: in units of the
+    plain row's logit RMS, the plain logit of the kernel path's
+    runner-up within ``HYBRID_REL_MARGIN["fp16"]`` of the plain
+    runner-up, the same token wherever the plain top-2 margin there
+    exceeds it, and max |pallas - plain| within ``HYBRID_REL_DIFF``.  Two
+    readings place that difference: the plain path's own rounding floor
+    (its prefill logits of the four rows one at a time against the same
+    rows as one B 4 batch), and the plain decode run on a copy of the
+    kernel path's pool and state, which differs from the kernel path by
+    the decode kernel alone (also within ``HYBRID_REL_DIFF``)."""
     from repro_torch.kernels.attention import ops
 
-    margin = SPEC_ORACLE_MARGIN["fp16"]
+    cfg = model.cfg
+    margin = HYBRID_REL_MARGIN["fp16"]
     b, bs = len(prompts), 16
     w = (length + gen) // bs + 1
     tables = (1 + torch.arange(b * w, device="cuda", dtype=torch.int32)
@@ -2608,7 +2648,8 @@ def hybrid_kernel_vs_plain(torch, np, model, cfg, prompts, gen=32, length=2112):
     views = {m: model.serving_view(cfg.replace(kernel_mode=m))
              for m in ("pallas", "xla")}
     v = cfg.vocab_size
-    worst, checked, under, max_diff = 0.0, 0, 0, 0.0
+    worst, checked, under, repeats, rms = 0.0, 0, 0, 0, []
+    diff = {"xla": [], "mixed": []}  # max |pallas - run| a step, in RMS
     ops.reset_counts()
     pools, lg = {}, {}
     with torch.inference_mode():
@@ -2623,36 +2664,116 @@ def hybrid_kernel_vs_plain(torch, np, model, cfg, prompts, gen=32, length=2112):
                 else:
                     leaf.copy_(new[n])
             pools[m], lg[m] = pool, last[:, :v]
+        # the plain decode on the kernel path's caches
+        runs = dict(views, mixed=views["xla"])
+        pools["mixed"] = {n: t.clone() for n, t in pools["pallas"].items()}
+        lg["mixed"] = lg["pallas"]
+        fed = tokens[:, -1].long()
+
+        def out(t):  # logits in units of the plain row's RMS, fed column out
+            return t.float().scatter(1, fed[:, None], float("nan")) / scale
+
+        def dmax(t, u):
+            return (out(t) - out(u)).abs().nan_to_num(0.0).max().item()
+
+        def hold(x, t, what):  # t within the margin of x's argmax, and it
+            top2 = x.topk(2, dim=-1).values  # where x's top-2 margin > it
+            gap = (top2[:, 0] - x.gather(1, t[:, None])[:, 0]).cpu().numpy()
+            sure = ((top2[:, 0] - top2[:, 1]) > margin).cpu().numpy()
+            agree = (x.argmax(-1) == t).cpu().numpy()
+            require((gap <= margin).all() and agree[sure].all(),
+                    f"recurrentgemma kernel vs plain, step {i}, {what}: gaps "
+                    f"{gap}, agree {agree} where the top-2 margin > {margin}: "
+                    f"{sure}")
+            return gap, sure
+
+        scale = lg["xla"].float().pow(2).mean(-1, keepdim=True).sqrt()
+        solo = torch.cat([views["xla"].prefill(tokens[r:r + 1], max_len=w * bs,
+                                               ring=False)[1][:, :v]
+                          for r in range(b)])
+        floor = dmax(solo, lg["xla"])
         for i in range(gen + 1):
             tok = lg["pallas"].argmax(-1)
-            x = lg["xla"].float()
-            top2 = x.topk(2, dim=-1).values
-            gap = (top2[:, 0] - x.gather(1, tok[:, None])[:, 0]).cpu().numpy()
-            sure = ((top2[:, 0] - top2[:, 1]) > margin).cpu().numpy()
-            agree = (x.argmax(-1) == tok).cpu().numpy()
-            require((gap <= margin).all() and agree[sure].all(),
-                    f"recurrentgemma kernel vs plain, step {i}: gaps {gap}, "
-                    f"agree {agree} where the top-2 margin > {margin}: {sure}")
+            repeats += int((tok == fed).sum())
+            scale = lg["xla"].float().pow(2).mean(-1, keepdim=True).sqrt()
+            rms.append(scale)
+            hold(lg["xla"].float() / scale, tok, "argmax")
+            ru = out(lg["pallas"]).nan_to_num(float("-inf")).argmax(-1)
+            gap, sure = hold(out(lg["xla"]).nan_to_num(float("-inf")), ru,
+                             "runner-up")
             worst = max(worst, float(gap.max()))
             checked += int(sure.sum())
             under += int((~sure).sum())
-            max_diff = max(max_diff, (lg["pallas"].float() - x).abs().max()
-                           .item())
+            for k, d in diff.items():
+                d.append(dmax(lg["pallas"], lg[k]))
             if i == gen:
                 break
             idx = torch.full((b,), length + i, dtype=torch.int32, device="cuda")
-            lg = {m: views[m].decode_step(pools[m], tok.to(torch.int32), idx,
-                                          tables)[:, :v] for m in views}
+            fed = tok
+            lg = {k: run.decode_step(pools[k], tok.to(torch.int32), idx,
+                                     tables)[:, :v] for k, run in runs.items()}
     c = _attention_counts()
-    print(f"[smoke] recurrentgemma (o) kernel vs plain on one batch ({b} rows "
-          f"x {length} tokens, {gen} decode steps at positions {length}-"
-          f"{length + gen - 1}): plain logits at the kernel path's tokens "
-          f"within {worst:.4f} of their argmax (margin {margin}); {checked} "
-          f"steps with a top-2 margin > {margin} all agree, {under} under it; "
-          f"max |kernel - plain| logit {max_diff:.4f}; counts {c} (the xla "
-          f"half on the plain path)")
+    rms = torch.cat(rms)
+    dx, dm = diff["xla"], diff["mixed"]
+    print(f"[smoke] recurrentgemma (o) kernel vs plain on one batch, pre-cap "
+          f"({b} rows x {length} tokens, {gen} decode steps at positions "
+          f"{length}-{length + gen - 1}; plain logit RMS "
+          f"{rms.min().item():.2f}-{rms.max().item():.2f}): the argmax held "
+          f"at every step, the fed token at {repeats} of {b * (gen + 1)}; "
+          f"with the fed token's column out, the plain logits at the kernel "
+          f"path's runner-up within {worst:.4f} RMS of theirs (margin "
+          f"{margin}), {checked} steps with a top-2 margin > {margin} RMS "
+          f"all the same token, {under} under it; max |kernel - plain| "
+          f"logit {max(dx):.4f} RMS (limit {HYBRID_REL_DIFF}): {dx[0]:.4f} at "
+          f"the prefill's logits (plain B 1 vs plain B 4 reads {floor:.4f}), "
+          f"{dx[1]:.4f} at decode step 1, {dx[-1]:.4f} at step {gen}; the "
+          f"plain decode on the kernel path's caches: max {max(dm):.4f} RMS "
+          f"({dm[1]:.4f} at step 1, {dm[-1]:.4f} at step {gen}); counts {c} "
+          f"(the xla half on the plain path)")
     require(c["flash_attention"] > 0 and c["paged_decode"] > 0,
             f"recurrentgemma kernel vs plain: kernel idle {c}")
+    require(max(dx) <= HYBRID_REL_DIFF and max(dm) <= HYBRID_REL_DIFF,
+            f"recurrentgemma kernel vs plain: max |d logit| {max(dx)} RMS, "
+            f"{max(dm)} on the kernel's caches > {HYBRID_REL_DIFF}")
+
+
+def hybrid_group_state(torch, np, model, pair):
+    """Wave (p): two equal-length prompts admitted by the grouped-prefill
+    engine as one B 2 group, one token each (no decode step moves the
+    state); the RG-LRU state (``lru`` f32, ``conv`` tail) at each
+    request's slot held to its solo prefill's within
+    ``HYBRID_STATE_REL``."""
+    from repro_torch.serve.engine import ContinuousServeEngine
+
+    n = len(pair[0])
+    eng = ContinuousServeEngine(model.cfg, model, device="cuda", num_slots=2,
+                                max_len=n + 16, block_size=16,
+                                max_prefills_per_iter=2)
+    reqs = [eng.submit(p, 1) for p in pair]
+    eng.run()
+    st = eng.stats
+    groups = st["host_syncs"] - st["decode_syncs"]
+    rel = {}
+    with torch.inference_mode():
+        for r, p in zip(reqs, pair):
+            solo, _ = model.prefill(torch.tensor(p, device="cuda")[None],
+                                    max_len=n + 16, ring=False)
+            for leaf in ("lru", "conv"):
+                a = eng._caches[leaf][:, r.slot].float()
+                ref = solo[leaf][:, 0].float()
+                rel[leaf] = max(rel.get(leaf, 0.0),
+                                ((a - ref).norm() / ref.norm()).item())
+    print(f"[smoke] recurrentgemma legacy (p) B 2 group: {len(pair)} x {n}-token "
+          f"prompts in {groups} prefill group(s), slots "
+          f"{[r.slot for r in reqs]}; RG-LRU state at each slot vs the solo "
+          f"prefill, |d| / |ref|: lru {rel['lru']:.4f}, conv {rel['conv']:.4f} "
+          f"(limit {HYBRID_STATE_REL})")
+    require(groups == 1 and sorted(r.slot for r in reqs) == [0, 1],
+            f"wave (p) B 2 group: {groups} groups")
+    require(max(rel.values()) <= HYBRID_STATE_REL,
+            f"wave (p) B 2 group: state off its solo prefill {rel}")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def _engine_counts_run(torch, eng, prompts, gen, extras=None):
@@ -2671,21 +2792,22 @@ def _engine_counts_run(torch, eng, prompts, gen, extras=None):
     return reqs, out, seconds, tokens, _attention_counts()
 
 
-def hybrid_more_engines(torch, np, cfg, model, prompts, ref):
-    """Wave (p): the model of (o) through the unified engine on an int8
-    pool (kernel 1q; 6,240 B/token), the grouped-prefill
-    ``ContinuousServeEngine`` (two equal-length 2304-token prompts
-    admitted together: one B 2 prefill group, then (o)'s stream) and the
-    fixed-batch ``ServeEngine`` (4 prompts x 2304 tokens over ring caches
-    of the 2048 window; its contiguous decode is the naive one-query path,
-    as in the JAX package: no decode kernel); each with (o)'s checks and
-    its token agreement with (o)."""
+def hybrid_more_engines(torch, np, model, prompts, ref):
+    """Wave (p): the pre-cap view of (o)'s model through the unified engine
+    on an int8 pool (kernel 1q; 6,240 B/token), the grouped-prefill
+    ``ContinuousServeEngine`` (four 2304-token prompts admitted two at a
+    time: two B 2 prefill groups, then (o)'s stream) and the fixed-batch
+    ``ServeEngine`` (the same four prompts over ring caches of the 2048
+    window; its contiguous decode is the naive one-query path, as in the
+    JAX package: no decode kernel); each with (o)'s checks.  The paged
+    engines print their token agreement with (o), the fixed batch its
+    agreement with the grouped-prefill engine on the same four prompts."""
     from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine
     from repro_torch.serve.step import UnifiedServeEngine
 
-    gen = 32
+    cfg, gen = model.cfg, 32
     max_len = max(len(p) for p in prompts) + gen
-    match = lambda streams: float(np.mean(  # noqa: E731
+    match = lambda streams, ref=ref: float(np.mean(  # noqa: E731
         [(a == b).mean() for a, b in zip(streams, ref)]))
     # unified, int8 pool
     eng = UnifiedServeEngine(cfg.replace(kv_dtype="int8"), model, device="cuda",
@@ -2703,18 +2825,21 @@ def hybrid_more_engines(torch, np, cfg, model, prompts, ref):
             and c["paged_decode"] == 0 and c["paged_span"] == 0
             and c["plain"] == 0, f"wave (p) unified int8: {c}")
     check_first_tokens(torch, model, cfg, prompts, [s[0] for s in streams],
-                       "recurrentgemma unified int8 (p)",
-                       tol=FIRST_TOKEN_TOL["int8"])
+                       "recurrentgemma unified int8 (p), pre-cap",
+                       tol=HYBRID_REL_MARGIN["int8"], rel=True)
     oracle_check(torch, np, model, cfg, prompts, streams,
-                 "recurrentgemma unified int8 (p)", SPEC_ORACLE_MARGIN["int8"])
+                 "recurrentgemma unified int8 (p), pre-cap",
+                 HYBRID_REL_MARGIN["int8"], rel=True)
     del eng
-    # grouped prefill: a B 2 group of two 2304-token prompts, then (o)'s
-    pair = [np.random.default_rng(7).integers(0, cfg.vocab_size, (2304,))
-            .astype(np.int32) for _ in range(2)]
-    wave = pair + list(prompts)
+    # grouped prefill: two B 2 groups of 2304-token prompts, then (o)'s
+    rng = np.random.default_rng(7)
+    quad = [rng.integers(0, cfg.vocab_size, (2304,)).astype(np.int32)
+            for _ in range(4)]
+    hybrid_group_state(torch, np, model, quad[:2])
+    wave = quad + list(prompts)
     eng = ContinuousServeEngine(cfg, model, device="cuda", num_slots=4,
                                 max_len=max(max_len, 2304 + gen),
-                                block_size=16, max_prefills_per_iter=4)
+                                block_size=16, max_prefills_per_iter=2)
     reqs, out, seconds, tokens, c = _engine_counts_run(torch, eng, wave, gen)
     served(out, reqs, gen, cfg.vocab_size)
     streams = [out[r.rid] for r in reqs]
@@ -2724,36 +2849,44 @@ def hybrid_more_engines(torch, np, cfg, model, prompts, ref):
           f"tokens in {seconds:.2f}s = {tokens / seconds:.1f} tok/s; "
           f"{st['prefills']} prefills in {groups} groups, "
           f"{st['decode_dispatches']} decode bursts; launches {c}; greedy "
-          f"token match vs (o) {match(streams[2:]):.3f}")
+          f"token match vs (o) {match(streams[4:]):.3f}")
     require(c["flash_attention"] > 0 and c["paged_decode"] > 0
             and c["paged_span"] == 0 and c["plain"] == 0,
             f"wave (p) legacy: {c}")
-    require(groups < len(wave), "wave (p) legacy: no group of two prompts")
+    require(groups <= len(wave) - 2,
+            f"wave (p) legacy: {groups} groups, not two B 2 groups")
     check_first_tokens(torch, model, cfg, wave, [s[0] for s in streams],
-                       "recurrentgemma legacy (p)")
+                       "recurrentgemma legacy (p), pre-cap",
+                       tol=HYBRID_REL_MARGIN["fp16"], rel=True)
     oracle_check(torch, np, model, cfg, wave, streams,
-                 "recurrentgemma legacy (p)", SPEC_ORACLE_MARGIN["fp16"])
+                 "recurrentgemma legacy (p), pre-cap",
+                 HYBRID_REL_MARGIN["fp16"], rel=True)
+    legacy_quad = streams[:4]
     del eng
     torch.cuda.empty_cache()
-    # fixed batch over ring caches
-    batch = np.stack([p[:2304] if len(p) >= 2304 else np.resize(p, 2304)
-                      for p in prompts[:4]])
+    # fixed batch over ring caches, on the legacy engine's four prompts
     static = ServeEngine(cfg, model, device="cuda", max_len=2304 + gen)
     c0 = _attention_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = static.generate(batch, num_tokens=gen)
+    got = static.generate(np.stack(quad), num_tokens=gen)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     c = {k: n - c0[k] for k, n in _attention_counts().items()}
     print(f"[smoke] recurrentgemma fixed batch (p): 4 prompts x 2304 tokens "
           f"(ring caches of {cfg.attention_window}), {got.size} tokens in "
           f"{seconds:.2f}s = {got.size / seconds:.1f} tok/s, "
-          f"{static.host_syncs} host syncs; launches {c}")
+          f"{static.host_syncs} host syncs; launches {c}; greedy token match "
+          f"vs the legacy engine on the same prompts "
+          f"{match(list(got), legacy_quad):.3f}")
     require(c["flash_attention"] > 0 and c["plain"] == 0,
             f"wave (p) fixed batch: {c}")
-    oracle_check(torch, np, model, cfg, list(batch), list(got),
-                 "recurrentgemma fixed batch (p)", SPEC_ORACLE_MARGIN["fp16"])
+    check_first_tokens(torch, model, cfg, quad, [s[0] for s in got],
+                       "recurrentgemma fixed batch (p), pre-cap",
+                       tol=HYBRID_REL_MARGIN["fp16"], rel=True)
+    oracle_check(torch, np, model, cfg, quad, list(got),
+                 "recurrentgemma fixed batch (p), pre-cap",
+                 HYBRID_REL_MARGIN["fp16"], rel=True)
 
 
 def vlm_stream(rng, np, cfg):
@@ -2871,7 +3004,7 @@ def reduced_phase(torch, np):
     under kernel modes pallas and xla give one greedy stream, equal to the
     forward() full-recompute oracle."""
     from repro_torch.configs import get_config, reduced
-    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.kernels.attention import ops
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine
     from repro_torch.serve.step import UnifiedServeEngine
@@ -2906,9 +3039,7 @@ def reduced_phase(torch, np):
             n_kernel = (ops.paged_attention.launches
                         + ops.paged_span_attention.launches
                         + ops.flash_attention.launches)
-            n_plain = (paged.paged_decode_plain.calls
-                       + paged.paged_span_plain.calls
-                       + flash.flash_attention_plain.calls)
+            n_plain = _attention_counts()["plain"]
             require((ops.flash_attention.launches > 0 and n_plain == 0)
                     if mode == "pallas" else (n_kernel == 0 and n_plain > 0),
                     f"{mode}: {n_kernel} kernel launches, {n_plain} plain calls")
@@ -2980,7 +3111,7 @@ def quant_streams_agree(torch, np, base, prompts, gen):
     """Reduced f32 over an int8/fp8 pool: the legacy and unified engines
     serve the same greedy streams under kernel_mode pallas (the quantized
     CUDA bodies) and xla (the plain dequant-gather path)."""
-    from repro_torch.kernels.attention import flash, ops, paged
+    from repro_torch.kernels.attention import ops
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import ContinuousServeEngine
     from repro_torch.serve.step import UnifiedServeEngine
@@ -3002,9 +3133,7 @@ def quant_streams_agree(torch, np, base, prompts, gen):
                      + ops.paged_span_attention.quant_launches)
             native = (ops.paged_attention.launches
                       + ops.paged_span_attention.launches)
-            n_plain = (paged.paged_decode_plain.calls
-                       + paged.paged_span_plain.calls
-                       + flash.flash_attention_plain.calls)
+            n_plain = _attention_counts()["plain"]
             require(native == 0 and ((quant > 0 and n_plain == 0)
                                      if mode == "pallas" else quant == 0),
                     f"{base.kv_dtype} {name} {mode}: {quant} quantized / "

@@ -213,12 +213,16 @@ class DecoderLM(nn.Module):
                                      row_len=row_len, mode="decode")
         return self._logits(x)
 
+    def chunk_resumable(self) -> bool:
+        """A token-only attention stack (JAX asserts ``family in ("dense",
+        "moe")``), every cache leaf pooled: a prompt may resume mid-way
+        from pooled K/V (chunked prefill, prefix reuse, span rows).  A
+        recurrent state cannot, and vlm patches sit off the token grid."""
+        return self.cfg.family in ("dense", "moe") and self.fully_paged()
+
     def _attention_only(self, what: str):
-        """The chunk-resumable paths take token-only attention stacks
-        (JAX asserts ``family in ("dense", "moe")``): a recurrent state
-        cannot resume a prompt mid-way, and vlm patches sit off the token
-        grid."""
-        if self.cfg.family not in ("dense", "moe"):
+        """The chunk-resumable paths refuse every other stack."""
+        if not self.chunk_resumable():
             raise ValueError(f"{what} needs an attention-only stack; "
                              f"{self.cfg.name!r} is family "
                              f"{self.cfg.family!r}")

@@ -91,7 +91,7 @@ def _rg_gates(m: GriffinRec, xg):
     return log_a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
 
 
-def rglru_scan(m: GriffinRec, x, h0=None, chunk: int = RG_CHUNK):
+def rglru_scan(m: GriffinRec, x, h0=None):
     """x: [B, S, lru] -> (h_seq [B, S, lru] in x.dtype, h_last [B, lru]
     f32); ``h0`` [B, lru] is the state before the first token (zero when
     None).  Chunked f32 recurrence, see the module docstring."""
@@ -101,11 +101,11 @@ def rglru_scan(m: GriffinRec, x, h0=None, chunk: int = RG_CHUNK):
     log_a, u = log_a.reshape(bsz, s, lru), u.reshape(bsz, s, lru)
     h = (torch.zeros((bsz, lru), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
-    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+    causal = torch.ones((RG_CHUNK, RG_CHUNK), dtype=torch.bool,
                         device=x.device).tril()[:, :, None]
     out = torch.empty((bsz, s, lru), dtype=torch.float32, device=x.device)
-    for c0 in range(0, s, chunk):
-        t = min(chunk, s - c0)
+    for c0 in range(0, s, RG_CHUNK):
+        t = min(RG_CHUNK, s - c0)
         cum = log_a[:, c0:c0 + t].cumsum(dim=1)  # L_t, chunk-local
         # exp(L_t - L_s) for s <= t; the mask goes in before the exp
         w = (cum[:, :, None] - cum[:, None]).masked_fill(

@@ -167,10 +167,10 @@ class ContinuousServeEngine:
         self.pool = (BlockPool(self.num_blocks, bs, tracer=tracer,
                                kv_dtype=cfg.kv_dtype, block_bytes=block_bytes)
                      if self._has_paged else None)
-        # prefix reuse needs every leaf pooled AND token-only prompts (vlm
-        # patches would shift block contents off the token-hash grid)
-        self.prefix_cache = (bool(prefix_cache) and self.model.fully_paged()
-                             and cfg.family in ("dense", "moe"))
+        # prefix reuse resumes a prompt from pooled blocks on the token-hash
+        # grid (vlm patches would shift block contents off it)
+        self.prefix_cache = (bool(prefix_cache)
+                             and self.model.chunk_resumable())
 
         self.queue = RequestQueue()
         self.scheduler = Scheduler(

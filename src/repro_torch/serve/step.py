@@ -141,10 +141,8 @@ class UnifiedServeEngine(ContinuousServeEngine):
             raise ValueError(
                 f"max_step_tokens {self.max_step_tokens} < num_slots "
                 f"{self.num_slots}: decode alone would overrun the budget")
-        # chunked prefill needs every cache leaf pooled (a recurrent state
-        # cannot resume a prompt mid-way) and token-only prompts
-        self.chunkable = (self.model.fully_paged()
-                          and cfg.family in ("dense", "moe"))
+        # chunked prefill resumes a prompt mid-way from pooled K/V
+        self.chunkable = self.model.chunk_resumable()
         self._progress = np.zeros((self.num_slots,), np.int64)
         self._target = np.zeros((self.num_slots,), np.int64)
         self._prefilling = np.zeros((self.num_slots,), bool)

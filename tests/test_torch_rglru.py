@@ -129,14 +129,18 @@ def test_scan_matches_jax_and_f64_recurrence(pair, s, with_h0):
     _close(last, rlast, ORACLE_TOL)
 
 
-@pytest.mark.parametrize("chunk", [1, 8, 16, 128])
-def test_scan_is_chunk_length_independent(pair, chunk):
+@pytest.mark.parametrize("split", [1, 8, 64, 99])
+def test_scan_split_with_h0_equals_whole(pair, split):
+    """The scan over the first ``split`` tokens, then over the rest from
+    its last state as ``h0``, gives the scan over all 100 tokens: the
+    state carried across any boundary, inside a chunk or on one."""
     _, _, _, m = pair
     x = torch.from_numpy(_x(1, 100, m.lam.numel(), seed=4))
-    h, last = rglru.rglru_scan(m, x, chunk=chunk)
-    h64, last64 = rglru.rglru_scan(m, x)
-    _close(h, h64)
-    _close(last, last64)
+    h, last = rglru.rglru_scan(m, x)
+    h1, mid = rglru.rglru_scan(m, x[:, :split])
+    h2, last2 = rglru.rglru_scan(m, x[:, split:], mid)
+    _close(torch.cat([h1, h2], dim=1), h)
+    _close(last2, last)
 
 
 def test_scan_stays_finite_at_strong_decay(pair):
